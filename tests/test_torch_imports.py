@@ -1,0 +1,68 @@
+"""The port stands alone: importing every repro_torch module leaves JAX
+(and the reference package) out of ``sys.modules``, no port source
+imports either, and entry points refuse to run without a card unless
+the CPU is asked for."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "repro_torch"
+ROOT = SRC.parent
+
+_WALK = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_every_module_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _WALK], cwd=ROOT,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 30, out.stdout
+    assert bad == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_never_import_jax_or_repro(path):
+    src = path.read_text()
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.MULTILINE)
+    assert not pat.findall(src), path
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card, an entry point called without ``device=`` raises
+    instead of quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.core.logic_infer import LogicNetwork
+    from repro_torch.core.quant import ActQuantSpec
+    from repro_torch.device import NoCudaDeviceError, resolve_device
+    from repro_torch.launch.serve import main
+    from repro_torch.serving.engine import LogicEngine
+    with pytest.raises(NoCudaDeviceError):
+        resolve_device()
+    net = LogicNetwork([], ActQuantSpec("signed", 2), 1.0, 4, 0)
+    with pytest.raises(NoCudaDeviceError):
+        LogicEngine(net, 5)
+    with pytest.raises(NoCudaDeviceError):
+        main(["--mode", "logic", "--requests", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
