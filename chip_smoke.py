@@ -16,16 +16,19 @@ Phases, each printing its own lines:
   4. serve    — the port's main path: a seeded full-width JSC-S is
                 compiled to truth tables and a mapped 6-LUT netlist and
                 serves 8 requests of 64 test rows through
-                ``LogicEngine.serve_queue`` on bitplane/cuda-streamed,
-                bitplane/cuda and lut_layer. Each run starts with every
+                ``LogicEngine.serve_queue`` on bitplane (its default
+                engine on the card, cuda-streamed), bitplane/cuda and
+                lut_layer. Each run's serving starts with every
                 kernel's launch count at 0 and must launch its kernel;
                 its labels must equal the CPU gather path's and the
                 float MLP's argmax, and its input codes on the card the
                 CPU's;
   5. timing   — each kernel at the shapes the served batch gave it,
-                beside its plain version and its bound;
-  6. profile  — one served batch per engine split into stages (host
-                clock) and the device's busy share (``torch.profiler``).
+                held bit for bit against its plain version on those
+                inputs, then timed beside it and its bound;
+  6. profile  — one served batch per engine split into the stages of
+                ``LogicEngine.stages`` (host clock) and the device's busy
+                share (``torch.profiler``).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -86,6 +89,35 @@ def time_ms(fn, iters: int = 200, reps: int = 7) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check(errs, name, got, want, what):
+    """Bit-exact comparison of a kernel's output with its plain
+    version's; records the max abs error under ``name``."""
+    import torch
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {what}: {got.shape}/{got.dtype} vs "
+            f"{want.shape}/{want.dtype}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    errs[name] = max(errs.get(name, 0), err)
+    require(torch.equal(got, want), f"{name} {what}: differs from its "
+            f"plain version (max abs err {err})")
+
+
+def netlist_work(mapped, n_words: int):
+    """(least bytes, operations) of evaluating ``mapped`` on ``n_words``
+    words per wire: each real LUT's INIT at 2^m bits and its m int32
+    leaf indices, the PI words read once, one int32 word per wire
+    (constant row, PIs, LUTs) written once; three 32-bit operations per
+    Shannon select, 2^m - 1 selects per LUT."""
+    init_bits = sum(1 << len(l.leaves) for l in mapped.luts)
+    n_leaves = sum(len(l.leaves) for l in mapped.luts)
+    n_bytes = ((init_bits + 7) // 8 + 4 * n_leaves
+               + 4 * n_words * (mapped.n_pis
+                                + 1 + mapped.n_pis + mapped.n_luts))
+    n_ops = 3 * n_words * sum((1 << len(l.leaves)) - 1 for l in mapped.luts)
+    return n_bytes, n_ops
 
 
 def bound(n_bytes: int, n_ops: int):
@@ -187,16 +219,6 @@ def phase_kernels(torch, errs):
     from repro_torch.synth.executor import _compile_plan
     dev = torch.device("cuda")
 
-    def check(name, got, want, what):
-        torch.cuda.synchronize()
-        require(got.shape == want.shape and got.dtype == want.dtype,
-                f"{name} {what}: {got.shape}/{got.dtype} vs "
-                f"{want.shape}/{want.dtype}")
-        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-        errs[name] = max(errs.get(name, 0), err)
-        require(torch.equal(got, want), f"{name} {what}: differs from its "
-                f"plain version (max abs err {err})")
-
     # lut_layer: JSC-S layer shapes at the serving batch, then a sweep
     shapes = [(256, 16, 64, 3, 3), (256, 64, 32, 3, 3), (256, 32, 5, 3, 3),
               (8, 16, 32, 3, 2), (130, 20, 50, 4, 2), (64, 64, 128, 6, 2),
@@ -209,7 +231,7 @@ def phase_kernels(torch, errs):
                             dtype=torch.int32).to(dev)
         tables = torch.randint(0, 8, (N, L ** K), generator=g,
                                dtype=torch.int32).to(dev)
-        check("lut_layer", lut_layer(codes, idx, tables, L),
+        check(errs, "lut_layer", lut_layer(codes, idx, tables, L),
               lut_layer_ref(codes, idx, tables, L), f"{(B, n_in, N, K, L)}")
         if (B, n_in, N) == (256, 64, 32):
             ms = time_ms(lambda: lut_layer(codes, idx, tables, L))
@@ -237,7 +259,7 @@ def phase_kernels(torch, errs):
             dp = synth.compile_device_plan(mapped, plan)
             args = [i32(a) for a in (dp.leaf_idx, dp.tt_bits, dp.out_wires)]
             plane = lut_eval(pw, *args, n_wires=dp.n_wires)
-            check("lut_eval", plane,
+            check(errs, "lut_eval", plane,
                   lut_eval_ref(pw, *args, n_wires=dp.n_wires),
                   f"{label} W={n_words}")
             out = plane.cpu().numpy().view(np.uint32)[dp.out_idx]
@@ -250,7 +272,7 @@ def phase_kernels(torch, errs):
                 targs = [i32(a) for a in (tp.tt_tiles, tp.leaf_tiles,
                                           tp.out_base,
                                           level_starts(tp.level_of_tile))]
-                check("lut_eval_streamed",
+                check(errs, "lut_eval_streamed",
                       lut_eval_streamed(pw, *targs, n_rows=tp.n_rows),
                       lut_eval_streamed_ref(pw, *targs, n_rows=tp.n_rows),
                       f"{label} W={n_words} T={tile_rows}")
@@ -308,44 +330,50 @@ def phase_serve(torch):
           f"scores; card input codes and MLP argmax agree")
 
     runs = {}
-    for backend, engine, kernel in (("bitplane", "cuda-streamed",
-                                     "lut_eval_streamed"),
+    # engine None: the bitplane default on the card, the streamed kernel
+    for backend, engine, kernel in (("bitplane", None, "lut_eval_streamed"),
                                     ("bitplane", "cuda", "lut_eval"),
-                                    ("lut_layer", "numpy", "lut_layer")):
-        reset_launch_counts()
+                                    ("lut_layer", None, "lut_layer")):
         t0 = time.perf_counter()
         eng = LogicEngine(net, JSC_S.n_classes, backend=backend,
                           engine=engine, device="cuda")
-        results, stats = eng.serve_queue(reqs)
-        counts = launch_counts()
-        wall = time.perf_counter() - t0
-        labels = np.concatenate(results)
-        require(counts[kernel] > 0, f"{backend}/{engine}: {kernel} was not "
-                f"launched (counts {counts})")
-        require(np.array_equal(labels, want), f"{backend}/{engine}: labels "
-                f"differ from the CPU gather path "
-                f"({int((labels != want).sum())} rows)")
-        shape = ""
+        setup = time.perf_counter() - t0
+        name = backend
         if backend == "bitplane":
             m = eng.bitnet.mapped
-            shape = f"{m.n_luts} LUTs depth {m.depth}, "
-        print(f"[serve] {backend}/{engine}: {shape}labels == CPU gather == "
+            name = f"{backend}/{eng.engine}"
+            require(engine is not None or eng.engine == "cuda-streamed",
+                    f"the bitplane default engine on the card is "
+                    f"{eng.engine!r}, not 'cuda-streamed'")
+        reset_launch_counts()
+        results, stats = eng.serve_queue(reqs)
+        counts = launch_counts()
+        labels = np.concatenate(results)
+        require(counts[kernel] > 0, f"{name}: {kernel} was not launched "
+                f"(counts {counts})")
+        require(np.array_equal(labels, want), f"{name}: labels differ from "
+                f"the CPU gather path ({int((labels != want).sum())} rows)")
+        shape = (f"{m.n_luts} LUTs depth {m.depth}, "
+                 if backend == "bitplane" else "")
+        print(f"[serve] {name}: {shape}labels == CPU gather == "
               f"MLP argmax; p50={stats['p50_us']:.1f}us "
               f"p95={stats['p95_us']:.1f}us batches={stats['n_batches']} "
-              f"launches {counts} ({wall:.1f}s with synthesis)")
+              f"launches while serving {counts} (set-up with synthesis "
+              f"{setup:.1f}s)")
         runs[kernel] = (eng, counts[kernel])
     return runs, xte[: 256]
 
 
 def phase_timing(torch, runs, batch, errs, card):
-    """Each kernel at the shapes of one served 256-row batch."""
-    from repro_torch.kernels.lut_eval import (lut_eval, lut_eval_ref,
-                                              lut_eval_streamed,
-                                              lut_eval_streamed_ref)
+    """Each kernel at the shapes of one served 256-row batch: held bit
+    for bit against its plain version on the served inputs, then timed
+    beside it. The bound counts the least bytes the function moves
+    (``netlist_work``; lut_layer's tables at their stored width), the
+    bytes of the padded plan tensors are printed beside it."""
     from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
     rows = []
 
-    def row(name, fn, plain, n_bytes, n_ops, launches):
+    def row(name, fn, plain, n_bytes, n_ops, launches, plan_bytes):
         ms, plain_ms = time_ms(fn), time_ms(plain)
         b_ms, b_by = bound(n_bytes, n_ops)
         src, replaces = KERNELS[name]
@@ -355,57 +383,55 @@ def phase_timing(torch, runs, batch, errs, card):
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
         print(f"[timing] {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms, "
-              f"bound {b_ms:.6f} ms by {b_by}) on {card}")
+              f"bound {b_ms:.7f} ms by {b_by}: {n_bytes} least bytes, "
+              f"{n_ops} ops; plan tensors {plan_bytes} bytes) on {card}")
 
-    eng, launches = runs["lut_eval_streamed"]
-    ex = eng.bitnet.executor
-    words = eng.bitnet.pack_inputs(batch)
-    tp = ex.tp
-    targs = (ex._tt_tiles, ex._leaf_tiles, ex._out_base, ex._level_start)
-    out = lut_eval_streamed(words, *targs, n_rows=tp.n_rows)
-    n_luts = eng.bitnet.mapped.n_luts
-    fold_ops = 3 * ((1 << tp.k) - 1) * n_luts * words.shape[1]
-    row("lut_eval_streamed",
-        lambda: lut_eval_streamed(words, *targs, n_rows=tp.n_rows),
-        lambda: lut_eval_streamed_ref(words, *targs, n_rows=tp.n_rows),
-        nbytes(words, *targs, out), fold_ops, launches)
-
-    eng, launches = runs["lut_eval"]
-    ex = eng.bitnet.executor
-    words = eng.bitnet.pack_inputs(batch)
-    margs = (ex._leaf, ex._tt, ex._ow)
-    out = lut_eval(words, *margs, n_wires=ex.dp.n_wires)
-    row("lut_eval", lambda: lut_eval(words, *margs, n_wires=ex.dp.n_wires),
-        lambda: lut_eval_ref(words, *margs, n_wires=ex.dp.n_wires),
-        nbytes(words, *margs, out), fold_ops, launches)
+    for name in ("lut_eval_streamed", "lut_eval"):
+        eng, launches = runs[name]
+        ex = eng.bitnet.executor
+        words = eng.stages(batch)["quantize+pack"]()
+        check(errs, name, ex.plane(words), ex.plane(words, plain=True),
+              f"served JSC-S batch W={words.shape[1]}")
+        n_bytes, n_ops = netlist_work(eng.bitnet.mapped, words.shape[1])
+        plan = ((ex.tp.tt_tiles, ex.tp.leaf_tiles, ex.tp.out_base,
+                 ex.tp.level_of_tile) if name == "lut_eval_streamed"
+                else (ex.dp.leaf_idx, ex.dp.tt_bits, ex.dp.out_wires))
+        row(name, lambda: ex.plane(words),
+            lambda: ex.plane(words, plain=True), n_bytes, n_ops, launches,
+            nbytes(words, ex.plane(words)) + sum(a.nbytes for a in plan))
 
     eng, launches = runs["lut_layer"]
     net = eng.net
     codes0 = net.quantize_inputs(torch.as_tensor(batch, device="cuda"))
-    layers = [(idx, tables, lt.in_spec.n_levels) for lt, (idx, tables)
+    layers = [(idx, tables, lt) for lt, (idx, tables)
               in zip(net.layers, net.layer_tensors(codes0.device))]
 
     def chain(fn):
         c = codes0
-        for idx, tables, n_levels in layers:
-            c = fn(c, idx, tables, n_levels)
+        for idx, tables, lt in layers:
+            c = fn(c, idx, tables, lt.in_spec.n_levels)
         return c
 
-    n_bytes, n_ops, c = 0, 0, codes0
-    for idx, tables, n_levels in layers:
-        nxt = lut_layer(c, idx, tables, n_levels)
-        n_bytes += nbytes(c, idx, tables, nxt)
+    n_bytes, n_ops, plan_bytes, c = 0, 0, 0, codes0
+    for i, (idx, tables, lt) in enumerate(layers):
+        nxt = lut_layer(c, idx, tables, lt.in_spec.n_levels)
+        check(errs, "lut_layer", nxt,
+              lut_layer_ref(c, idx, tables, lt.in_spec.n_levels),
+              f"served JSC-S batch, layer {i}")
+        n_bytes += nbytes(c, idx, nxt) + lt.tables.nbytes
+        plan_bytes += nbytes(c, idx, tables, nxt)
         n_ops += 2 * idx.shape[1] * nxt.numel()
         c = nxt
     row("lut_layer", lambda: chain(lut_layer), lambda: chain(lut_layer_ref),
-        n_bytes, n_ops, launches)
+        n_bytes, n_ops, launches, plan_bytes)
     return rows
 
 
 def phase_profile(torch, runs, batch, card):
     """Where one served 256-row batch spends its time, per engine: host
-    clock per stage (median of 50, each ending in a synchronize), and
-    the device's busy time from ``torch.profiler`` over 20 batches."""
+    clock per stage of ``LogicEngine.stages`` (median of 50, each ending
+    in a synchronize), and the device's busy time from
+    ``torch.profiler`` over 20 batches."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,29 +448,8 @@ def phase_profile(torch, runs, batch, card):
     symbols = {"lut_eval_streamed": "lut_eval_streamed_kernel",
                "lut_eval": "lut_eval_kernel", "lut_layer": "lut_layer_kernel"}
     for kernel, (eng, _) in runs.items():
-        n = batch.shape[0]
         serve = eng.scheduler_executor()
-        if eng.backend == "bitplane":
-            bn, ex = eng.bitnet, eng.bitnet.executor
-            words = bn.pack_inputs(batch)
-            out = ex._eval_words(words)
-            stages = {"quantize+pack": lambda: bn.pack_inputs(batch),
-                      "netlist kernel": lambda: ex._eval_words(words),
-                      "decode+argmax+copy": lambda: ex._labels(
-                          out, n, 5).cpu()}
-        else:
-            net = eng.net
-            xt = torch.as_tensor(batch, device="cuda")
-            codes = net.quantize_inputs(xt)
-            oc = net.apply_codes(codes, use_kernel=True)
-            lv = net.out_levels("cuda")
-            stages = {"host->card+quantize": lambda: net.quantize_inputs(
-                          torch.as_tensor(batch, device="cuda")),
-                      "3 lut_layer launches": lambda: net.apply_codes(
-                          codes, use_kernel=True),
-                      "decode+argmax+copy": lambda: torch.argmax(
-                          lv[oc.long()][:, :5], dim=-1).cpu()}
-        parts = {k: med_us(f) for k, f in stages.items()}
+        parts = {k: med_us(f) for k, f in eng.stages(batch).items()}
         whole = med_us(lambda: serve(batch))
         for _ in range(5):
             serve(batch)
@@ -470,7 +475,9 @@ def phase_profile(torch, runs, batch, card):
         idle = 1.0 - busy / wall_us if wall_us else float("nan")
         kern = (f"{kern_us / kern_n:.2f} us per launch ({kern_n} launches)"
                 if kern_n else "not seen by the profiler")
-        print(f"[profile] {eng.backend}/{eng.engine} one 256-row batch: "
+        name = (f"bitplane/{eng.engine}" if eng.backend == "bitplane"
+                else eng.backend)
+        print(f"[profile] {name} one 256-row batch: "
               f"{whole:.1f} us end to end; "
               + ", ".join(f"{k} {v:.1f} us" for k, v in parts.items())
               + f"; profiled {wall_us:.1f} us/batch, device busy "

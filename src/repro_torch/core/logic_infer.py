@@ -92,12 +92,20 @@ def logic_layer_apply(lt: LayerTables, codes: torch.Tensor,
     return torch.gather(tables, 1, rows.T.long()).T
 
 
+def argmax_labels(net: LogicNetwork, out_codes: torch.Tensor,
+                  classes: int) -> torch.Tensor:
+    """Last-layer codes -> argmax over their decoded values (first index
+    on ties, as ``jnp.argmax``)."""
+    vals = net.out_levels(out_codes.device)[out_codes.long()]
+    return torch.argmax(vals[..., :classes], dim=-1)
+
+
 def classify(net: LogicNetwork, x: torch.Tensor, classes: int,
              use_kernel: bool = False) -> torch.Tensor:
     """Argmax over the decoded last-layer values (first index on ties,
     as ``jnp.argmax``)."""
-    vals = net(x, use_kernel=use_kernel)
-    return torch.argmax(vals[..., :classes], dim=-1)
+    codes = net.apply_codes(net.quantize_inputs(x), use_kernel=use_kernel)
+    return argmax_labels(net, codes, classes)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ latency and each kernel's launches during serving.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,8 +32,9 @@ ROWS_PER_REQUEST = 64
 
 
 def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
-                backend: str = "gather", engine: str = "numpy",
-                params: str = None, seed: int = 0, device=None) -> dict:
+                backend: str = "gather", engine: Optional[str] = None,
+                params: Optional[str] = None, seed: int = 0,
+                device=None) -> dict:
     from repro_torch.configs.jsc import JSC
     from repro_torch.data.jsc import train_test
     from repro_torch.kernels import launch_counts
@@ -55,7 +57,7 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
                       device=dev)
     if backend == "bitplane":
         print(f"  mapped: {eng.bitnet.mapped.n_luts} LUTs, "
-              f"depth {eng.bitnet.mapped.depth} (engine {engine}, "
+              f"depth {eng.bitnet.mapped.depth} (engine {eng.engine}, "
               f"device {dev})")
     (_, _), (xte, yte) = train_test()
     reqs = [xte[i * ROWS_PER_REQUEST: (i + 1) * ROWS_PER_REQUEST]
@@ -82,10 +84,11 @@ def main(argv=None):
     ap.add_argument("--backend", choices=list(BACKENDS), default="gather",
                     help="logic inference path (bitplane = mapped netlist)")
     ap.add_argument("--engine", choices=list(engine_names()),
-                    default="numpy",
+                    default=None,
                     help="bitplane netlist executor: host fold (numpy), "
                          "monolithic lut_eval kernel (cuda) or streamed "
-                         "kernel (cuda-streamed)")
+                         "kernel (cuda-streamed); default cuda-streamed "
+                         "on a CUDA device, numpy on the CPU")
     ap.add_argument("--requests", type=int, default=8,
                     help=f"requests of {ROWS_PER_REQUEST} rows to serve")
     ap.add_argument("--params", default=None, metavar="NPZ",

@@ -13,7 +13,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.logic_infer import LogicNetwork, classify
+from repro_torch.core.logic_infer import (LogicNetwork, argmax_labels,
+                                          classify)
 from repro_torch.device import DeviceLike, resolve_device
 
 BACKENDS = ("gather", "lut_layer", "bitplane")
@@ -36,7 +37,8 @@ class LogicEngine:
     For the bitplane backend, ``engine`` names a netlist executor in the
     ``repro_torch.synth.executors`` registry: ``"numpy"`` (host fold),
     ``"cuda"`` (monolithic ``lut_eval`` kernel) or ``"cuda-streamed"``
-    (streamed ``lut_eval_streamed`` kernel).
+    (streamed ``lut_eval_streamed`` kernel). Left unset it is
+    ``"cuda-streamed"`` on a CUDA device and ``"numpy"`` on the CPU.
 
     ``device`` defaults to ``"cuda"`` and raises without a card;
     ``device="cpu"`` runs every kernel's plain torch version.
@@ -47,7 +49,7 @@ class LogicEngine:
     max_batch: int = 256
     max_wait_ms: float = 0.2
     backend: str = "gather"
-    engine: str = "numpy"               # bitplane netlist executor
+    engine: Optional[str] = None        # bitplane netlist executor
     synth_effort: int = 1
     device: DeviceLike = None
 
@@ -59,6 +61,7 @@ class LogicEngine:
             self.bitnet = compile_logic_network(
                 self.net, effort=self.synth_effort, engine=self.engine,
                 device=self.device)
+            self.engine = self.bitnet.engine
             # padded aggregator: one batch shape for every flush size
             self._agg = BitplaneAggregator(self.bitnet, self.n_classes,
                                            pad_rows=self.max_batch)
@@ -69,6 +72,13 @@ class LogicEngine:
         # first call at the serving batch size (builds the kernels)
         self._dense(np.zeros((self.max_batch, self.net.n_inputs),
                              np.float32))
+
+    def _pad(self, x: np.ndarray) -> np.ndarray:
+        """Zero rows up to ``max_batch``: one batch shape for every flush."""
+        pad = self.max_batch - x.shape[0]
+        if pad:
+            x = np.concatenate([x, np.zeros((pad, x.shape[1]), x.dtype)])
+        return x
 
     def _dense(self, x: np.ndarray) -> np.ndarray:
         """gather / lut_layer: (max_batch, F) -> (max_batch,) int32."""
@@ -89,10 +99,47 @@ class LogicEngine:
                              f"{self.max_batch}")
         if self.backend == "bitplane":
             return np.asarray(self._agg(x))
-        pad = self.max_batch - n
-        if pad:
-            x = np.concatenate([x, np.zeros((pad, x.shape[1]), x.dtype)])
-        return self._dense(x)[:n]
+        return self._dense(self._pad(x))[:n]
+
+    def stages(self, x: np.ndarray) -> Dict[str, Callable[[], Any]]:
+        """One ``exec_batch`` of ``x`` split into its stages, for
+        profiling: stage name -> zero-argument callable, in order.
+
+        Each callable reruns its stage on what the stage before it
+        produced for ``x`` (computed once here); the last one returns
+        ``exec_batch(x)``'s labels. The bitplane backend needs a device
+        engine (``"cuda"``, ``"cuda-streamed"``): the numpy engine folds
+        on the host in one step."""
+        x = np.asarray(x)
+        n = x.shape[0]
+        if self.backend == "bitplane":
+            ex = self.bitnet.executor
+            if not hasattr(ex, "eval_words"):
+                raise ValueError(f"engine {self.engine!r} has no device "
+                                 f"stages")
+            words = self._agg.pack_requests(x)
+            out = ex.eval_words(words)
+            return {"quantize+pack": lambda: self._agg.pack_requests(x),
+                    "netlist kernel": lambda: ex.eval_words(words),
+                    "decode+argmax+copy": lambda: ex.labels(
+                        out, n, self.n_classes).cpu().numpy()}
+        net, use_kernel = self.net, self.backend == "lut_layer"
+        xp = self._pad(x)
+
+        def quantize():
+            return net.quantize_inputs(torch.as_tensor(
+                xp, dtype=torch.float32, device=self.device))
+
+        def decode():
+            labels = argmax_labels(net, out, self.n_classes)[:n]
+            return labels.to(torch.int32).cpu().numpy()
+
+        codes = quantize()
+        out = net.apply_codes(codes, use_kernel=use_kernel)
+        return {"host->device+quantize": quantize,
+                "tables": lambda: net.apply_codes(codes,
+                                                  use_kernel=use_kernel),
+                "decode+argmax+copy": decode}
 
     def classify(self, x: np.ndarray) -> np.ndarray:
         """Synchronous batched classification."""

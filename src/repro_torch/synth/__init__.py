@@ -13,6 +13,8 @@ The host pipeline is numpy (a copy of ``repro.synth``'s);
 ``compile_logic_network(net)`` is the one-call pipeline from a compiled
 ``LogicNetwork`` to its executable mapped netlist.
 """
+from typing import Optional
+
 from .aig import AIG, CONST0, CONST1, lit, lit_compl, lit_not, lit_var
 from .cuts import Cut, enumerate_cuts
 from . import executors
@@ -35,14 +37,16 @@ def synthesize(aig: AIG, effort: int = 1, k: int = 6) -> MappedNetwork:
 
 
 def compile_logic_network(net, effort: int = 1, k: int = 6,
-                          engine: str = "numpy", device=None,
+                          engine: Optional[str] = None, device=None,
                           spec=None) -> BitplaneNetwork:
     """LogicNetwork -> optimized mapped netlist, ready to execute.
 
     ``engine`` names an executor in the ``repro_torch.synth.executors``
     registry: ``"cuda"`` runs the netlist through the monolithic
     ``lut_eval`` kernel, ``"cuda-streamed"`` through the streamed one,
-    ``"numpy"`` folds on the host. ``device`` defaults to ``"cuda"``."""
+    ``"numpy"`` folds on the host; ``None`` picks ``"cuda-streamed"`` on
+    a CUDA device and ``"numpy"`` elsewhere. ``device`` defaults to
+    ``"cuda"``."""
     return BitplaneNetwork.from_logic_network(net, effort=effort, k=k,
                                               engine=engine, device=device,
                                               spec=spec)

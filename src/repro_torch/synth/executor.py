@@ -368,8 +368,10 @@ class _TorchExecutor:
 
     Everything between the input codes and the labels runs on the
     engine's device: bitplane pack (32 samples per int32 lane), the
-    netlist kernel (subclass ``_eval_words``), the output complement,
-    code decode, the ``out_levels`` gather and the per-request argmax.
+    netlist kernel (subclass ``plane``), the output complement, code
+    decode, the ``out_levels`` gather and the per-request argmax.
+    ``pack_codes``, ``eval_words`` and ``labels`` are those stages one
+    by one.
     """
 
     name = "device"
@@ -400,9 +402,16 @@ class _TorchExecutor:
 
     # ---- device building blocks -----------------------------------------
 
-    def _eval_words(self, words: torch.Tensor) -> torch.Tensor:
-        """(n_pis, W) int32 -> complemented output words (n_outputs, W)."""
+    def plane(self, words: torch.Tensor, plain: bool = False
+              ) -> torch.Tensor:
+        """(n_pis, W) int32 -> the netlist kernel's whole wire plane;
+        ``plain`` runs the kernel's plain torch version on the same
+        tensors instead."""
         raise NotImplementedError
+
+    def eval_words(self, words: torch.Tensor) -> torch.Tensor:
+        """(n_pis, W) int32 -> complemented output words (n_outputs, W)."""
+        return self.plane(words)[self._out_idx] ^ self._neg[:, None]
 
     def pack_codes(self, codes: torch.Tensor) -> torch.Tensor:
         """(B, n_inputs) int codes -> (n_pi_wires, ceil(B/32)) int32
@@ -429,7 +438,7 @@ class _TorchExecutor:
         return (grouped << self._out_weights).sum(dim=1,
                                                   dtype=torch.int32).T
 
-    def _labels(self, out_words: torch.Tensor, b: int,
+    def labels(self, out_words: torch.Tensor, b: int,
                 n_classes: int) -> torch.Tensor:
         vals = self._levels[self._decode(out_words, b).long()]
         return torch.argmax(vals[..., :n_classes], dim=-1).to(torch.int32)
@@ -438,21 +447,21 @@ class _TorchExecutor:
 
     def apply_codes(self, codes) -> np.ndarray:
         codes = torch.as_tensor(np.asarray(codes), device=self.device)
-        out = self._decode(self._eval_words(self.pack_codes(codes)),
+        out = self._decode(self.eval_words(self.pack_codes(codes)),
                            codes.shape[0])
         return out.cpu().numpy().astype(np.int64)
 
     def classify_codes(self, codes, n_classes: int) -> np.ndarray:
         codes = torch.as_tensor(np.asarray(codes), device=self.device)
-        out = self._eval_words(self.pack_codes(codes))
-        return self._labels(out, codes.shape[0], n_classes).cpu().numpy()
+        out = self.eval_words(self.pack_codes(codes))
+        return self.labels(out, codes.shape[0], n_classes).cpu().numpy()
 
     def classify_words(self, words: torch.Tensor, n_rows: int,
                        n_classes: int) -> np.ndarray:
         """Packed PI words on the device -> (n_rows,) int32 labels; only
         the labels come back to the host."""
-        out = self._eval_words(words)
-        return self._labels(out, n_rows, n_classes).cpu().numpy()
+        out = self.eval_words(words)
+        return self.labels(out, n_rows, n_classes).cpu().numpy()
 
     def classify_packed(self, pi_words, n_rows: int,
                         n_classes: int) -> np.ndarray:
@@ -479,11 +488,13 @@ class _CudaExecutor(_TorchExecutor):
         self._out_idx = self._tensor(dp.out_idx).long()
         self._neg = self._tensor(np.where(dp.out_neg, -1, 0))
 
-    def _eval_words(self, words: torch.Tensor) -> torch.Tensor:
-        from repro_torch.kernels.lut_eval import lut_eval
-        plane = lut_eval(words, self._leaf, self._tt, self._ow,
-                         n_wires=self.dp.n_wires, spec=self.spec)
-        return plane[self._out_idx] ^ self._neg[:, None]
+    def plane(self, words: torch.Tensor, plain: bool = False
+              ) -> torch.Tensor:
+        from repro_torch.kernels.lut_eval import lut_eval, lut_eval_ref
+        args = (words, self._leaf, self._tt, self._ow)
+        if plain:
+            return lut_eval_ref(*args, n_wires=self.dp.n_wires)
+        return lut_eval(*args, n_wires=self.dp.n_wires, spec=self.spec)
 
 
 class _CudaStreamedExecutor(_TorchExecutor):
@@ -510,12 +521,16 @@ class _CudaStreamedExecutor(_TorchExecutor):
         self._out_idx = self._tensor(tp.out_idx).long()
         self._neg = self._tensor(np.where(tp.out_neg, -1, 0))
 
-    def _eval_words(self, words: torch.Tensor) -> torch.Tensor:
-        from repro_torch.kernels.lut_eval import lut_eval_streamed
-        plane = lut_eval_streamed(words, self._tt_tiles, self._leaf_tiles,
-                                  self._out_base, self._level_start,
-                                  n_rows=self.tp.n_rows, spec=self.spec)
-        return plane[self._out_idx] ^ self._neg[:, None]
+    def plane(self, words: torch.Tensor, plain: bool = False
+              ) -> torch.Tensor:
+        from repro_torch.kernels.lut_eval import (lut_eval_streamed,
+                                                  lut_eval_streamed_ref)
+        args = (words, self._tt_tiles, self._leaf_tiles, self._out_base,
+                self._level_start)
+        if plain:
+            return lut_eval_streamed_ref(*args, n_rows=self.tp.n_rows)
+        return lut_eval_streamed(*args, n_rows=self.tp.n_rows,
+                                 spec=self.spec)
 
 
 # ---------------------------------------------------------------------------
@@ -530,21 +545,24 @@ class BitplaneNetwork:
     ``LogicNetwork.__call__`` bit-exactly on every reachable input.
 
     ``engine`` names an executor in the ``repro_torch.synth.executors``
-    registry (built-ins ``"numpy"``, ``"cuda"``, ``"cuda-streamed"``);
-    unknown names raise ``UnknownEngineError`` listing the registered
+    registry (built-ins ``"numpy"``, ``"cuda"``, ``"cuda-streamed"``;
+    ``None`` picks ``"cuda-streamed"`` on a CUDA device and ``"numpy"``
+    elsewhere); unknown names raise ``UnknownEngineError`` listing the registered
     engines. ``device`` is where the input quantizer and the device
     engines run (default ``"cuda"``; ``"cpu"`` runs the kernels' plain
     versions).
     """
 
-    def __init__(self, net, mapped: MappedNetwork, engine: str = "numpy",
-                 device=None, spec=None):
-        from .executors import get as _get_engine
+    def __init__(self, net, mapped: MappedNetwork,
+                 engine: Optional[str] = None, device=None, spec=None):
+        from .executors import default_engine, get as _get_engine
+        self.device = resolve_device(device)
+        if engine is None:
+            engine = default_engine(self.device)
         self._factory = _get_engine(engine)    # typed error on bad name
         self.net = net
         self.mapped = mapped
         self.engine = engine
-        self.device = resolve_device(device)
         self.spec = spec
         self.tracer = NULL_TRACER
         self._plan = _compile_plan(mapped)
@@ -556,7 +574,7 @@ class BitplaneNetwork:
 
     @classmethod
     def from_logic_network(cls, net, effort: int = 1, k: int = 6,
-                           engine: str = "numpy", device=None,
+                           engine: Optional[str] = None, device=None,
                            spec=None) -> "BitplaneNetwork":
         from . import synthesize        # lazy: package init imports us
         from .from_sop import network_to_aig

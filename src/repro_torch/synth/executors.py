@@ -6,11 +6,13 @@ implements the ``Executor`` protocol (the call surface
 ``BitplaneNetwork`` delegates to). Built-ins registered at import
 (reference name in brackets):
 
-  * ``"numpy"``                           — host bitplane fold;
+  * ``"numpy"``                           — host bitplane fold (the
+    default on the CPU);
   * ``"cuda"``          [``"pallas"``]    — monolithic ``lut_eval``
     kernel over the level-stacked ``DevicePlan``;
   * ``"cuda-streamed"`` [``"pallas-streamed"``] — streamed
-    ``lut_eval_streamed`` kernel over the level-major ``TilePlan``.
+    ``lut_eval_streamed`` kernel over the level-major ``TilePlan`` (the
+    default on a CUDA device).
 
 Registering a custom engine is one call and every call site that takes
 ``engine=`` (``BitplaneNetwork``, ``compile_logic_network``,
@@ -31,6 +33,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
+import torch
 
 
 @runtime_checkable
@@ -105,6 +108,12 @@ def get(name: str) -> ExecutorFactory:
         return _REGISTRY[name]
     except KeyError:
         raise UnknownEngineError(name, names()) from None
+
+
+def default_engine(device: torch.device) -> str:
+    """The engine used where none is named: the streamed kernel on a
+    CUDA device, the host fold elsewhere."""
+    return "cuda-streamed" if torch.device(device).type == "cuda" else "numpy"
 
 
 def names() -> Tuple[str, ...]:

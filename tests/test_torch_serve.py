@@ -132,6 +132,42 @@ def test_served_labels_match_reference_gather(slice_state, backend, engine):
         assert agg.n_pad_rows > 0            # ragged flushes were padded
 
 
+@pytest.mark.parametrize("backend,engine", [
+    ("bitplane", "cuda-streamed"), ("bitplane", "cuda"), ("lut_layer", None),
+    ("gather", None)])
+def test_engine_stages_compose_to_exec_batch(slice_state, backend, engine):
+    """``LogicEngine.stages`` splits one batch into stages whose last
+    returns ``exec_batch``'s labels; a device engine's ``plane`` and its
+    plain version agree on the packed words."""
+    eng = LogicEngine(slice_state["net"], 5, max_batch=128, backend=backend,
+                      engine=engine, device="cpu")
+    x = slice_state["xte"][:97]
+    stages = eng.stages(x)
+    assert len(stages) == 3
+    for fn in stages.values():
+        labels = fn()
+    np.testing.assert_array_equal(labels, slice_state["want"][:97])
+    np.testing.assert_array_equal(labels, eng.exec_batch(x))
+    if backend == "bitplane":
+        ex = eng.bitnet.executor
+        words = stages["quantize+pack"]()
+        assert words.shape[1] == 128 // 32        # padded to max_batch
+        assert torch.equal(ex.plane(words), ex.plane(words, plain=True))
+
+
+def test_bitplane_engine_defaults_by_device(slice_state):
+    """Without ``engine=`` the bitplane backend runs the streamed kernel
+    on a CUDA device and the host fold on the CPU."""
+    from repro_torch.synth.executors import default_engine
+    assert default_engine(torch.device("cuda")) == "cuda-streamed"
+    assert default_engine("cpu") == "numpy"
+    eng = LogicEngine(slice_state["net"], 5, max_batch=128,
+                      backend="bitplane", device="cpu")
+    assert eng.engine == eng.bitnet.engine == "numpy"
+    with pytest.raises(ValueError, match="no device stages"):
+        eng.stages(slice_state["xte"][:8])
+
+
 def test_mlp_forward_argmax_agrees(slice_state):
     """The float MLP and its compiled logic agree on the argmax of this
     stream (the reference MLP gives the same scores)."""
