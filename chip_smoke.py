@@ -28,7 +28,22 @@ Phases, each printing its own lines:
                 inputs, then timed beside it and its bound;
   6. profile  — one served batch per engine split into the stages of
                 ``LogicEngine.stages`` (host clock) and the device's busy
-                share (``torch.profiler``).
+                share (``torch.profiler``);
+  7. kernels2 — the kernel-bench path's kernels against their plain
+                versions on the card: the aig_sim walk, the public
+                ``aig_sim`` route and xnor_popcount bit for bit (random
+                AIGs at W 1 / 7 / 256; xnor with zeros and ragged B, N
+                and n), fanin_matmul within 1e-5 of max(1, |y|) and
+                flash_attention within 2e-4 (bench, window, ragged and
+                fully masked shapes; TF32 off in the plain version);
+  8. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
+                once on the card at the reference's shapes, from every
+                launch count at 0; each of its four kernels must launch;
+  9. timing2  — each of those kernels at the bench shapes beside its
+                plain version, its bound, the library call that computes
+                the same function (``torch.matmul`` of the +-1 operands,
+                the masked dense product, ``scaled_dot_product_attention``)
+                and its device time per launch (``torch.profiler``).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -38,6 +53,7 @@ those lines. Without a CUDA device, or without the repository's
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,7 +72,19 @@ KERNELS = {
                  "src/repro/kernels/lut_eval/lut_eval.py:94"),
     "lut_layer": ("src/repro_torch/csrc/lut_layer.cu",
                   "src/repro/kernels/lut_layer/lut_layer.py:55"),
+    "aig_sim": ("src/repro_torch/csrc/aig_sim.cu",
+                "src/repro/kernels/aig_sim/aig_sim.py:49"),
+    "xnor_popcount": ("src/repro_torch/csrc/xnor_popcount.cu",
+                      "src/repro/kernels/xnor_popcount/xnor_popcount.py:61"),
+    "fanin_matmul": ("src/repro_torch/csrc/fanin_matmul.cu",
+                     "src/repro/kernels/fanin_matmul/fanin_matmul.py:47"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:73"),
 }
+F32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
+BENCH_KERNELS = ("aig_sim", "xnor_popcount", "fanin_matmul",
+                 "flash_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -120,10 +148,28 @@ def netlist_work(mapped, n_words: int):
     return n_bytes, n_ops
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = ALU_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(errs, name, got, want, tol, what, relative=False):
+    """Float comparison of a kernel's output with its plain version's:
+    max |got - want| (over max(1, |want|) when ``relative``) within
+    ``tol``; records the max abs error under ``name``."""
+    import torch
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {what}: {got.shape}/{got.dtype} vs "
+            f"{want.shape}/{want.dtype}")
+    diff = (got - want).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    scaled = (float((diff / want.abs().clamp(min=1.0)).max())
+              if relative and got.numel() else err)
+    require(math.isfinite(scaled) and scaled <= tol,
+            f"{name} {what}: error {scaled} exceeds {tol}")
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +531,240 @@ def phase_profile(torch, runs, batch, card):
               f"device time {kern} on {card}")
 
 
+def phase_kernels2(torch, errs):
+    """The kernel-bench path's four kernels against their plain versions
+    on the card, at the bench shapes and ragged ones."""
+    import numpy as np
+    from repro_torch import synth
+    from repro_torch.bench.kernels_bench import FULL, make_inputs
+    from repro_torch.kernels.aig_sim import aig_sim, aig_sim_ref, aig_sim_walk
+    from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.xnor_popcount import (pack_bipolar,
+                                                   xnor_matmul_packed,
+                                                   xnor_matmul_ref,
+                                                   xnor_popcount_ref)
+    from repro_torch.synth.simulate import _simulate_np
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    inp = make_inputs(dev, FULL)
+    print(f"[kernels2] bench inputs (two AIGs synthesized) in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    a = inp.aig
+    for n_words in (1, 7, 256):
+        words = (a.host_words if n_words == 256 else
+                 synth.random_words(a.n_pis, n_words, seed=n_words))
+        wt = t(words.view(np.int32))
+        check(errs, "aig_sim", aig_sim_walk(wt, a.f0_t, a.f1_t),
+              aig_sim_ref(wt, a.f0_t, a.f1_t, a.n_pis),
+              f"bench AIG ({a.f0.shape[0]} ANDs) W={n_words}")
+        routed = aig_sim(words, a.f0, a.f1, a.n_pis, device=dev)
+        require(np.array_equal(routed, _simulate_np(a.aig, words)),
+                f"aig_sim route W={n_words}: differs from the numpy walk")
+        require(np.array_equal(synth.simulate(a.aig, words, use_kernel=True,
+                                              device=dev),
+                               synth.simulate(a.aig, words)),
+                f"simulate(use_kernel=True) W={n_words} differs")
+    print(f"[kernels2] aig_sim walk == plain, aig_sim route == numpy walk "
+          f"on the bench AIG ({a.f0.shape[0]} ANDs), W in 1/7/256")
+
+    rng = np.random.default_rng(11)
+    xshapes = [(256, 4096, 256, False), (256, 4096, 256, True),
+               (37, 100, 70, True), (1, 7, 1, True), (300, 1000, 33, False)]
+    for (B, n, N, zeros) in xshapes:
+        if (B, n, N, zeros) == (256, 4096, 256, False):
+            x, w = inp.xnor.x, inp.xnor.w
+        else:
+            vals = [-1.0, 0.0, 1.0] if zeros else [-1.0, 1.0]
+            x = t(rng.choice(vals, (B, n)), torch.float32)
+            w = t(rng.choice(vals, (N, n)), torch.float32)
+        xp, wp = pack_bipolar(x), pack_bipolar(w)
+        got = xnor_matmul_packed(xp, wp, n)
+        check(errs, "xnor_popcount", got, xnor_popcount_ref(xp, wp, n),
+              f"{(B, n, N)} zeros={zeros}")
+        if not zeros:
+            check(errs, "xnor_popcount", got, xnor_matmul_ref(x, w),
+                  f"{(B, n, N)} against the float oracle")
+    print(f"[kernels2] xnor_popcount == plain on {len(xshapes)} shapes "
+          "(== the float oracle on +-1 inputs)")
+
+    fshapes = [(256, 4096, 1024, 8), (70, 33, 45, 3), (129, 1000, 257, 5)]
+    for (B, n_in, N, K) in fshapes:
+        if (B, n_in, N, K) == (256, 4096, 1024, 8):
+            f = inp.fanin
+            x, idx, w, bias = f.x, f.idx, f.w, f.bias
+        else:
+            x = t(rng.normal(size=(B, n_in)), torch.float32)
+            idx = t(rng.integers(0, n_in, (N, K)))
+            w = t(rng.normal(size=(N, K)), torch.float32)
+            bias = t(rng.normal(size=(N,)), torch.float32)
+        check_close(errs, "fanin_matmul", fanin_matmul(x, idx, w, bias),
+                    fanin_matmul_ref(x, idx, w, bias), 1e-5,
+                    f"{(B, n_in, N, K)}", relative=True)
+    print(f"[kernels2] fanin_matmul within 1e-5 of plain on "
+          f"{len(fshapes)} shapes")
+
+    ashapes = [(1, 1024, 1024, 4, 2, 64, True, 0),
+               (1, 300, 300, 4, 1, 32, True, 64),
+               (2, 130, 77, 4, 2, 16, True, 0),
+               (1, 33, 70, 4, 4, 8, False, 0),
+               (1, 257, 257, 2, 1, 128, True, 0),
+               (1, 300, 130, 1, 1, 8, True, 4)]
+    for (b, sq, sk, h, kv, dh, causal, win) in ashapes:
+        if sq == 1024:
+            q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
+        else:
+            q = t(rng.normal(size=(b, sq, h, dh)), torch.float32)
+            k = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
+            v = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
+        check_close(errs, "flash_attention",
+                    flash_attention(q, k, v, causal=causal, window=win),
+                    attention_ref(q, k, v, causal=causal, window=win), 2e-4,
+                    f"{(b, sq, sk, h, kv, dh, causal, win)}")
+    print(f"[kernels2] flash_attention within 2e-4 of plain on "
+          f"{len(ashapes)} shapes")
+    return inp
+
+
+def phase_bench(torch):
+    """The kernel-bench path, once, from every launch count at 0."""
+    from repro_torch.bench.kernels_bench import run
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = run(device="cuda")
+    counts = launch_counts()
+    for name in BENCH_KERNELS:
+        require(counts[name] > 0, f"bench: {name} was not launched "
+                f"(counts {counts})")
+    require(all(math.isfinite(v) and v > 0 for v in rows.values()),
+            f"bench: a row is not a positive time: {rows}")
+    print(f"[bench] {len(rows)} rows in {time.perf_counter() - t0:.1f}s; "
+          f"launches {counts}")
+    return counts
+
+
+def phase_timing2(torch, inp, counts, errs, card):
+    """The bench-path kernels at the bench shapes: wrapper time (CUDA
+    events), the plain version's (few calls), the least bytes / operations
+    of this run's inputs, the library call's time and the device time per
+    launch from ``torch.profiler``."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
+    from repro_torch.kernels.fanin_matmul import (dense_equivalent,
+                                                  fanin_matmul,
+                                                  fanin_matmul_ref)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.xnor_popcount import (pack_bipolar,
+                                                   xnor_matmul_packed,
+                                                   xnor_popcount_ref)
+    rows, fns = [], {}
+
+    def row(name, fn, plain, library, n_bytes, n_ops, ops_per_s=ALU_OPS_PER_S):
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, iters=3, reps=3)
+        lib_ms = time_ms(library) if library else None
+        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
+        src, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": errs.get(name, 0), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+        fns[name] = fn
+        lib = f"{lib_ms:.5f} ms" if lib_ms is not None else "none"
+        print(f"[timing2] {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms; "
+              f"library {lib}; bound {b_ms:.7f} ms by {b_by}: {n_bytes} "
+              f"bytes, {n_ops} ops) on {card}")
+
+    a = inp.aig
+    n_ands = a.f0.shape[0]
+    plane_rows = 1 + a.n_pis + n_ands
+    n_words = a.words.shape[1]
+    row("aig_sim", lambda: aig_sim_walk(a.words, a.f0_t, a.f1_t),
+        lambda: aig_sim_ref(a.words, a.f0_t, a.f1_t, a.n_pis), None,
+        nbytes(a.words, a.f0_t, a.f1_t) + 4 * plane_rows * n_words,
+        3 * n_ands * n_words)
+
+    x, w = inp.xnor.x, inp.xnor.w
+    n = x.shape[1]
+    xp, wp = pack_bipolar(x), pack_bipolar(w)
+    B, W = xp.shape
+    N = wp.shape[0]
+    row("xnor_popcount", lambda: xnor_matmul_packed(xp, wp, n),
+        lambda: xnor_popcount_ref(xp, wp, n), lambda: x @ w.T,
+        nbytes(xp, wp) + 4 * B * N, 3 * B * N * W + 2 * B * N)
+
+    f = inp.fanin
+    B, n_in = f.x.shape
+    N, K = f.idx.shape
+    w_dense = torch.zeros((N, n_in), dtype=torch.float32, device=f.x.device)
+    w_dense.scatter_add_(1, f.idx.long(), f.w)
+    check_close({}, "fanin_matmul", dense_equivalent(f.x, w_dense, f.bias),
+                fanin_matmul(f.x, f.idx, f.w, f.bias), 1e-4,
+                "against the masked dense product", relative=True)
+    n_cols = int(torch.unique(f.idx).numel())
+    row("fanin_matmul", lambda: fanin_matmul(f.x, f.idx, f.w, f.bias),
+        lambda: fanin_matmul_ref(f.x, f.idx, f.w, f.bias),
+        lambda: dense_equivalent(f.x, w_dense, f.bias),
+        4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N,
+        2 * B * N * K + B * N, F32_OPS_PER_S)
+
+    q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    pairs = b * h * sum(min(i + 1, sk) for i in range(sq))     # causal
+    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    except TypeError:                 # torch without enable_gqa
+        ke, ve = (t_.repeat_interleave(h // kvh, dim=1) for t_ in (kt, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, ke, ve, is_causal=True)
+    check_close({}, "flash_attention", sdpa().transpose(1, 2),
+                flash_attention(q, k, v), 2e-4, "against the library call")
+    row("flash_attention", lambda: flash_attention(q, k, v),
+        lambda: attention_ref(q, k, v), sdpa,
+        nbytes(q, k, v) + 4 * q.numel(), 4 * dh * pairs, F32_OPS_PER_S)
+
+    # device time per launch: one profiler session over 10 calls of each
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(10):
+                fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for name in fns:
+        mine = [e for e in events if f"{name}_kernel" in e.key]
+        n = sum(e.count for e in mine)
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in mine)
+        print(f"[timing2] {name}_kernel device time "
+              + (f"{us / n:.2f} us per launch ({n} launches)" if n else
+                 "not seen by the profiler (device events: "
+                 + ", ".join(sorted({e.key[:60] for e in events})) + ")")
+              + f" on {card}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -509,6 +789,10 @@ def main() -> int:
     runs, batch = phase_serve(torch)
     rows = phase_timing(torch, runs, batch, errs, card)
     phase_profile(torch, runs, batch, card)
+    inp = phase_kernels2(torch, errs)
+    counts = phase_bench(torch)
+    rows += phase_timing2(torch, inp, counts, errs, card)
+    require(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,10 @@ bit for bit on the same inputs: ``ste_round``'s forward is
 ``x + (round(x) - x)``, not ``round(x)``, and ``encode_levels`` computes
 ``round(x * half / alpha) + half`` left to right. ``torch.round`` and
 ``jnp.round`` both round half to even.
+
+Subnormal inputs are flushed to (signed) zero where values enter the
+quantizers (``apply_act_quant``, ``encode_levels``), as the reference's
+XLA CPU build does: ``-1e-40`` quantizes like ``-0.0``, to ``+1``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,13 @@ def _as(value, like: Tensor) -> Tensor:
     # which rounds differently from the reference's true division: divide
     # tensors only
     return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def flush_subnormals(x: Tensor) -> Tensor:
+    """Subnormal floats -> zero of the same sign (XLA's denormals-are-zero
+    on the CPU), on any device; NaN, infinities and normal floats pass."""
+    tiny = torch.finfo(x.dtype).tiny
+    return torch.where(x.abs() < tiny, torch.zeros_like(x).copysign(x), x)
 
 
 def ste_round(x: Tensor) -> Tensor:
@@ -138,6 +149,7 @@ def apply_act_quant(spec: ActQuantSpec, x: Tensor, alpha) -> Tensor:
     """Quantized activation values (forward)."""
     if spec.kind == "none":
         return x
+    x = flush_subnormals(x)
     if spec.kind == "sign":
         return sign(x) * _as(alpha, x)
     if spec.kind == "binary":
@@ -151,7 +163,7 @@ def apply_act_quant(spec: ActQuantSpec, x: Tensor, alpha) -> Tensor:
 
 def encode_levels(spec: ActQuantSpec, x: Tensor, alpha) -> Tensor:
     """Quantized activation values -> int32 level codes [0, n_levels)."""
-    xf = x.to(torch.float32)
+    xf = flush_subnormals(x.to(torch.float32))
     alpha = _as(alpha, xf)
     if spec.kind == "sign":
         return (xf > 0).to(torch.int32)

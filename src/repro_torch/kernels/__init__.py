@@ -1,10 +1,19 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch
 version.
 
-  lut_eval   — whole mapped-netlist evaluation over packed bitplanes,
-               monolithic (``lut_eval``, over a ``DevicePlan``) and
-               streamed (``lut_eval_streamed``, over a ``TilePlan``);
-  lut_layer  — the truth-table-lookup layer of a ``LogicNetwork``.
+  lut_eval        — whole mapped-netlist evaluation over packed
+                    bitplanes, monolithic (``lut_eval``, over a
+                    ``DevicePlan``) and streamed (``lut_eval_streamed``,
+                    over a ``TilePlan``);
+  lut_layer       — the truth-table-lookup layer of a ``LogicNetwork``;
+  aig_sim         — the one-node-per-step AIG walk (``aig_sim_walk``),
+                    and the public ``aig_sim`` route through
+                    ``lut_eval_streamed``;
+  xnor_popcount   — packed bipolar matmul (``xnor_matmul_packed``,
+                    ``xnor_matmul``);
+  fanin_matmul    — the fanin-K gather-matmul of an FCP-sparse layer;
+  flash_attention — online-softmax attention forward with causal,
+                    sliding-window and grouped-query heads.
 
 Each kernel directory holds ops.py (the wrapper: checks, allocation,
 launch, launch counter) and ref.py (the plain torch version). A wrapper
@@ -16,10 +25,17 @@ it never falls back from one to the other.
 
 def wrappers():
     """Kernel name -> wrapper (each counts its launches in ``.launches``)."""
+    from .aig_sim import aig_sim_walk
+    from .fanin_matmul import fanin_matmul
+    from .flash_attention import flash_attention
     from .lut_eval import lut_eval, lut_eval_streamed
     from .lut_layer import lut_layer
+    from .xnor_popcount import xnor_matmul_packed
     return {"lut_eval": lut_eval, "lut_eval_streamed": lut_eval_streamed,
-            "lut_layer": lut_layer}
+            "lut_layer": lut_layer, "aig_sim": aig_sim_walk,
+            "xnor_popcount": xnor_matmul_packed,
+            "fanin_matmul": fanin_matmul,
+            "flash_attention": flash_attention}
 
 
 def launch_counts():

@@ -6,14 +6,14 @@ import torch
 INT32_INDEX_LIMIT = 1 << 31
 
 
-def check_int32(name: str, t: torch.Tensor, device: torch.device,
-                ndim: int) -> None:
+def check_tensor(name: str, t: torch.Tensor, device: torch.device,
+                 ndim: int, dtype: torch.dtype) -> None:
     """Raise ``ValueError`` unless ``t`` is a contiguous ``ndim``-D
-    int32 tensor on ``device``."""
+    ``dtype`` tensor on ``device``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dim() != ndim:
@@ -24,6 +24,24 @@ def check_int32(name: str, t: torch.Tensor, device: torch.device,
     if t.numel() >= INT32_INDEX_LIMIT:
         raise ValueError(f"{name}: {t.numel()} elements exceed the "
                          "kernels' int32 indexing")
+
+
+def check_int32(name: str, t: torch.Tensor, device: torch.device,
+                ndim: int) -> None:
+    check_tensor(name, t, device, ndim, torch.int32)
+
+
+def check_float32(name: str, t: torch.Tensor, device: torch.device,
+                  ndim: int) -> None:
+    check_tensor(name, t, device, ndim, torch.float32)
+
+
+def words_to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 view of the same 32 bits
+    (torch has no uint32 arithmetic on CUDA; packed words travel as
+    int32, as the reference passes them)."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
 
 
 def require_cuda(device: torch.device, kernel: str) -> None:

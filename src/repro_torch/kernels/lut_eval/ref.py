@@ -5,7 +5,9 @@ they run on any device: the CPU path of the wrappers in ``ops.py``, and
 the yardstick the CUDA kernels are held against on the card. Both walk
 levels in order, and within a level fold every slot at once; a
 levelized plan (every leaf on an earlier level) makes that equal to
-the reference's slot-by-slot scan.
+the reference's slot-by-slot scan. ``lut_eval_gather_ref`` is the
+per-sample path on unpacked bits, the baseline the bitplane fold is
+benchmarked against.
 """
 from __future__ import annotations
 
@@ -71,3 +73,26 @@ def lut_eval_streamed_ref(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
         plane[rows] = tile_fold(tt_tiles[a:b].reshape(-1, n_tt),
                                 plane[leaves])
     return plane
+
+
+def lut_eval_gather_ref(pi_bits: torch.Tensor, leaf_idx: torch.Tensor,
+                        tt01: torch.Tensor, out_wires: torch.Tensor,
+                        n_pis: int, n_wires: int) -> torch.Tensor:
+    """Per-sample gather evaluation on unpacked bits.
+
+    pi_bits (n_pis, B) int32 {0, 1}; leaf_idx (n_levels, Lw, k);
+    tt01 (n_levels, Lw, 2^k) int32 {0, 1} truth-table bits; out_wires
+    (n_levels, Lw). Per level every slot builds its select index from
+    its gathered leaf bits and looks its output bit up in its table.
+    Returns the (n_wires + 1, B) int32 bit plane."""
+    k = leaf_idx.shape[-1]
+    bits = torch.zeros((n_wires + 1, pi_bits.shape[1]), dtype=torch.int32,
+                       device=pi_bits.device)
+    bits[1: n_pis + 1] = pi_bits
+    for lvl in range(leaf_idx.shape[0]):
+        leaves = leaf_idx[lvl].long()
+        sel = bits[leaves[:, 0]]
+        for j in range(1, k):
+            sel = sel | (bits[leaves[:, j]] << j)
+        bits[out_wires[lvl].long()] = torch.gather(tt01[lvl], 1, sel.long())
+    return bits

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.common import words_to_int32
 from repro_torch.kernels.spec import DEFAULT_SPEC, DEFAULT_TILE_ROWS
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -425,9 +426,8 @@ class _TorchExecutor:
             planes = torch.nn.functional.pad(planes, (0, pad))
         lanes = planes.reshape(planes.shape[0], -1, WORD_BITS)
         # disjoint bits: an int64 sum is their OR; fold to the int32 view
-        words = (lanes.to(torch.int64) << self._lane_shifts).sum(dim=2)
-        words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-        return words.to(torch.int32)
+        return words_to_int32(
+            (lanes.to(torch.int64) << self._lane_shifts).sum(dim=2))
 
     def _decode(self, out_words: torch.Tensor, b: int) -> torch.Tensor:
         """(n_out_wires, W) int32 words -> (b, n_out) int32 codes."""

@@ -2,9 +2,10 @@
 
 Samples are packed 32 per uint32 lane, so one AND node evaluation is a
 single bitwise op over a word vector — random simulation of thousands of
-patterns costs one numpy pass over the node list. (The reference
-package's on-chip AIG walk, ``repro.kernels.aig_sim``, is still to
-port.)
+patterns costs one numpy pass over the node list, or, with
+``use_kernel=True``, one launch of the streamed lut_eval kernel on the
+card (``repro_torch.kernels.aig_sim.aig_sim``; the reference's
+``use_pallas=True``).
 
 Equivalence checks come in two strengths:
   * ``exhaustive_equiv`` — all 2^n input patterns (n <= 16), a proof;
@@ -16,6 +17,8 @@ Equivalence checks come in two strengths:
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.device import DeviceLike
 
 from .aig import AIG, lit_compl, lit_var
 
@@ -52,14 +55,21 @@ def input_patterns(n_vars: int) -> np.ndarray:
     return pack_bits(bits)
 
 
-def simulate(aig: AIG, pi_words: np.ndarray) -> np.ndarray:
+def simulate(aig: AIG, pi_words: np.ndarray, use_kernel: bool = False,
+             device: DeviceLike = None) -> np.ndarray:
     """Evaluate all outputs on packed input words.
 
-    pi_words: (n_pis, W) uint32 -> (n_outputs, W) uint32.
+    pi_words: (n_pis, W) uint32 -> (n_outputs, W) uint32. With
+    ``use_kernel`` the node values come from the device route (the card
+    unless ``device="cpu"``, where the kernel's plain version runs);
+    otherwise from the numpy walk, and ``device`` is not used.
     """
     pi_words = np.ascontiguousarray(pi_words, np.uint32)
     assert pi_words.shape[0] == aig.n_pis
-    vals = _simulate_np(aig, pi_words)
+    if use_kernel:
+        vals = _simulate_kernel(aig, pi_words, device)
+    else:
+        vals = _simulate_np(aig, pi_words)
     out = np.empty((len(aig.outputs), pi_words.shape[1]), np.uint32)
     for i, o in enumerate(aig.outputs):
         v = vals[lit_var(o)]
@@ -83,6 +93,13 @@ def _simulate_np(aig: AIG, pi_words: np.ndarray) -> np.ndarray:
     return vals
 
 
+def _simulate_kernel(aig: AIG, pi_words: np.ndarray,
+                     device: DeviceLike) -> np.ndarray:
+    from repro_torch.kernels.aig_sim import aig_sim
+    f0, f1 = aig.fanin_arrays()
+    return aig_sim(pi_words, f0, f1, aig.n_pis, device=device)
+
+
 def random_words(n_rows: int, n_words: int,
                  seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -90,14 +107,17 @@ def random_words(n_rows: int, n_words: int,
                         dtype=np.uint32)
 
 
-def random_equiv(a: AIG, b: AIG, n_words: int = 64,
-                 seed: int = 0) -> bool:
+def random_equiv(a: AIG, b: AIG, n_words: int = 64, seed: int = 0,
+                 use_kernel: bool = False, device: DeviceLike = None) -> bool:
     """Monte-Carlo equivalence of two AIGs over the same PIs: 32*n_words
     random patterns. A miscompare is a proof of inequivalence; agreement
-    is evidence (standard random-simulation filter)."""
+    is evidence (standard random-simulation filter). ``use_kernel`` and
+    ``device`` as in ``simulate``."""
     assert a.n_pis == b.n_pis and len(a.outputs) == len(b.outputs)
     words = random_words(a.n_pis, n_words, seed)
-    return bool(np.array_equal(simulate(a, words), simulate(b, words)))
+    return bool(np.array_equal(
+        simulate(a, words, use_kernel=use_kernel, device=device),
+        simulate(b, words, use_kernel=use_kernel, device=device)))
 
 
 def exhaustive_equiv(aig: AIG, tts) -> bool:

@@ -1,0 +1,98 @@
+"""repro_torch.kernels.flash_attention against
+repro.kernels.flash_attention (the Pallas kernel in interpret mode) on
+the same numpy inputs, at the reference test's tolerance
+(rtol = atol = 2e-4): causal, sliding window, grouped-query heads and
+ragged sequence lengths."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.flash_attention import flash_attention_ref as ref_oracle
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_ref)
+
+
+def _qkv(b, sq, sk, h, kv, dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, dh)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, dh)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (2, 64, 64, 4, 2, 16, True, 0),       # GQA
+    (1, 128, 128, 2, 2, 64, True, 0),     # exact blocks
+    (2, 100, 100, 4, 1, 32, True, 24),    # window + ragged S
+    (1, 33, 70, 4, 4, 8, False, 0),       # Sq != Sk, no mask
+    (1, 257, 257, 2, 1, 128, True, 0),    # > 2 blocks, dh 128
+    (1, 20, 45, 2, 1, 12, True, 7),       # Sq < Sk, window, dh not 2^k
+])
+def test_flash_attention_matches_reference_kernel(b, sq, sk, h, kv, dh,
+                                                  causal, win):
+    q, k, v = _qkv(b, sq, sk, h, kv, dh)
+    want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, window=win))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                          window=win)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal,win", [(True, 0), (False, 0), (True, 5),
+                                        (False, 3)])
+def test_flat_oracle_matches_reference_oracle(causal, win):
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(3, 17, 8)).astype(np.float32)
+    k = rng.normal(size=(3, 23, 8)).astype(np.float32)
+    v = rng.normal(size=(3, 23, 8)).astype(np.float32)
+    want = np.asarray(ref_oracle(*map(jnp.asarray, (q, k, v)),
+                                 causal=causal, window=win))
+    got = flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=win)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_fully_masked_rows_take_the_mean_of_v():
+    """Causal with a window and more queries than keys leaves rows with
+    every key masked. The port gives them the dense softmax's answer,
+    the mean of v, as the reference's oracle does; the reference kernel
+    divides by the padded key count there once Sk > 128 is padded
+    (ROADMAP, reference caveats)."""
+    q, k, v = _qkv(1, 300, 130, 1, 1, 8)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True, window=4).numpy()
+    want = np.asarray(ref_oracle(*(jnp.asarray(a[:, :, 0]) for a in
+                                   (q, k, v)), causal=True, window=4))
+    np.testing.assert_allclose(got[:, :, 0], want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got[0, 299, 0], v[0, :, 0].mean(0),
+                               rtol=2e-4, atol=2e-4)
+    kernel = np.asarray(ref_flash(*map(jnp.asarray, (q, k, v)), causal=True,
+                                  window=4))
+    assert np.abs(kernel[0, 299, 0] - got[0, 299, 0]).max() > 1e-3
+    np.testing.assert_allclose(kernel[0, :133], got[0, :133], rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_attention_ref_repeats_kv_heads():
+    q, k, v = _qkv(2, 9, 11, 6, 2, 4, seed=2)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = attention_ref(tq, tk, tv, causal=False)
+    full = attention_ref(tq, tk.repeat_interleave(3, dim=2),
+                         tv.repeat_interleave(3, dim=2), causal=False)
+    np.testing.assert_array_equal(got.numpy(), full.numpy())
+
+
+def test_wrapper_rejects_bad_operands():
+    q = torch.zeros((1, 4, 3, 8))
+    k = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)                    # 3 heads over 2
+    with pytest.raises(ValueError):
+        flash_attention(q.double(), q, q)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros((1, 4, 2, 130)),
+                        torch.zeros((1, 4, 2, 130)),
+                        torch.zeros((1, 4, 2, 130)))

@@ -10,10 +10,17 @@ import pytest
 import torch
 
 from repro_torch import synth
+from repro_torch.device import NoCudaDeviceError
+from repro_torch.kernels.aig_sim import aig_sim, aig_sim_ref, aig_sim_walk
+from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval, lut_eval_ref,
                                           lut_eval_streamed,
                                           lut_eval_streamed_ref)
 from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+from repro_torch.kernels.xnor_popcount import (pack_bipolar,
+                                               xnor_matmul_packed,
+                                               xnor_popcount_ref)
 from repro_torch.synth.from_sop import table_to_aig
 
 pytestmark = pytest.mark.gpu
@@ -100,3 +107,87 @@ def test_engines_serve_identically_on_card(cuda_device):
         eng = LogicEngine(net, 5, max_batch=128, backend=backend,
                           engine=engine, device=cuda_device)
         np.testing.assert_array_equal(eng.classify(x), want)
+
+
+@pytest.mark.parametrize("n_words", [1, 257])
+def test_aig_sim_walk_and_route_match_plain(cuda_device, n_words):
+    rng = np.random.default_rng(n_words)
+    aig = synth.AIG(8)
+    aig.outputs = [table_to_aig(aig, rng.random(256) < 0.5, None,
+                                [2 * (i + 1) for i in range(8)])
+                   for _ in range(3)]
+    f0, f1 = aig.fanin_arrays()
+    words = synth.random_words(8, n_words, seed=n_words)
+    args = [_i32(a, cuda_device) for a in (words, f0, f1)]
+    launches = aig_sim_walk.launches
+    got = aig_sim_walk(*args)
+    torch.cuda.synchronize()
+    assert aig_sim_walk.launches == launches + 1
+    assert torch.equal(got, aig_sim_ref(*args, 8))
+    np.testing.assert_array_equal(
+        aig_sim(words, f0, f1, 8, device=cuda_device),
+        aig_sim(words, f0, f1, 8, device="cpu"))
+
+
+@pytest.mark.parametrize("B,n,N", [(256, 4096, 256), (37, 100, 70)])
+def test_xnor_kernel_matches_plain(cuda_device, B, n, N):
+    rng = np.random.default_rng(B)
+    x, w = (torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], s)
+                             .astype(np.float32)).to(cuda_device)
+            for s in ((B, n), (N, n)))
+    xp, wp = pack_bipolar(x), pack_bipolar(w)
+    launches = xnor_matmul_packed.launches
+    got = xnor_matmul_packed(xp, wp, n)
+    torch.cuda.synchronize()
+    assert xnor_matmul_packed.launches == launches + 1
+    assert torch.equal(got, xnor_popcount_ref(xp, wp, n))
+
+
+@pytest.mark.parametrize("B,n_in,N,K", [(256, 4096, 1024, 8),
+                                        (70, 33, 45, 3)])
+def test_fanin_kernel_matches_plain(cuda_device, B, n_in, N, K):
+    rng = np.random.default_rng(N)
+    x, idx, w, bias = (
+        torch.from_numpy(a).to(cuda_device) for a in (
+            rng.normal(size=(B, n_in)).astype(np.float32),
+            rng.integers(0, n_in, (N, K)).astype(np.int32),
+            rng.normal(size=(N, K)).astype(np.float32),
+            rng.normal(size=(N,)).astype(np.float32)))
+    launches = fanin_matmul.launches
+    got = fanin_matmul(x, idx, w, bias)
+    torch.cuda.synchronize()
+    assert fanin_matmul.launches == launches + 1
+    want = fanin_matmul_ref(x, idx, w, bias)
+    err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (1, 1024, 1024, 4, 2, 64, True, 0), (2, 100, 77, 4, 1, 32, True, 24)])
+def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
+                                    causal, win):
+    rng = np.random.default_rng(sq)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device) for s in ((b, sq, h, dh), (b, sk, kv, dh),
+                                          (b, sk, kv, dh)))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = attention_ref(q, k, v, causal=causal, window=win)
+    assert (got - want).abs().max().item() <= 2e-4
+
+
+def test_entry_points_without_a_card_raise():
+    """Without a card, the kernel bench and the device route of
+    ``simulate`` called without ``device=`` raise instead of running on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.bench.kernels_bench import SMALL, run
+    with pytest.raises(NoCudaDeviceError):
+        run(sizes=SMALL, iters=1)
+    aig = synth.AIG(2)
+    aig.outputs = [aig.and2(2, 4)]
+    with pytest.raises(NoCudaDeviceError):
+        synth.simulate(aig, synth.random_words(2, 1), use_kernel=True)

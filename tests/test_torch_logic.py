@@ -34,10 +34,7 @@ def _boundary_inputs(alpha):
     x = np.asarray(vals, np.float32)
     x = np.concatenate([x, np.nextafter(x, np.float32(np.inf)),
                         np.nextafter(x, np.float32(-np.inf))])
-    # the neighbours of 0 are subnormal: the reference's XLA CPU build
-    # flushes those to zero, torch keeps them (see
-    # test_subnormal_inputs_keep_their_sign); compare on normal floats
-    x = x[(x == 0) | (np.abs(x) >= np.finfo(np.float32).tiny)]
+    # the neighbours of 0 are subnormal: both packages code them as 0
     x = np.concatenate([x,
                         rng.normal(0, alpha, 200).astype(np.float32),
                         np.asarray([0.5, 1.5, 2.5, -1.5], np.float32)])
@@ -70,16 +67,22 @@ def test_quantizer_forward_and_codes(kind, bits, alpha):
 
 
 def test_subnormal_inputs_keep_their_sign():
-    """The port follows IEEE float32 on subnormal inputs, on the CPU as
-    on the card: a negative subnormal is negative. (The reference's XLA
-    CPU build flushes subnormals to zero, so ``repro`` codes it as +0;
-    recorded as a known divergence in ROADMAP.md.)"""
+    """Subnormal inputs code as the reference codes them: its XLA CPU
+    build flushes them to zero, and so does the port, on the CPU as on
+    the card, so ``-1e-40`` quantizes like ``-0.0`` (to +1)."""
     tiny = np.float32(1e-40)
-    x = torch.tensor([-tiny, tiny], dtype=torch.float32)
-    assert PQ.apply_act_quant(PQ.ActQuantSpec("sign", 1), x,
-                              1.0).tolist() == [-1.0, 1.0]
-    assert PQ.encode_levels(PQ.ActQuantSpec("sign", 1), x,
-                            1.0).tolist() == [0, 1]
+    x = np.asarray([-tiny, tiny, -0.0, 0.0], np.float32)
+    for kind, bits in SPECS[:-1]:
+        rs, ps = RQ.ActQuantSpec(kind, bits), PQ.ActQuantSpec(kind, bits)
+        want_q = np.asarray(RQ.apply_act_quant(rs, jnp.asarray(x),
+                                               jnp.float32(1.0)))
+        got_q = PQ.apply_act_quant(ps, torch.from_numpy(x), 1.0)
+        np.testing.assert_array_equal(got_q.numpy(), want_q)
+        np.testing.assert_array_equal(
+            PQ.encode_levels(ps, torch.from_numpy(x), 1.0).numpy(),
+            np.asarray(RQ.encode_levels(rs, jnp.asarray(x), 1.0)))
+    assert PQ.apply_act_quant(PQ.ActQuantSpec("sign", 1),
+                              torch.from_numpy(x), 1.0).tolist() == [1.0] * 4
 
 
 def test_select_activation_rule():

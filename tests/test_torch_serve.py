@@ -194,4 +194,5 @@ def test_launcher_serves_carried_weights(slice_state):
     # CPU tensors take the plain versions: no kernel launched
     assert launch_counts() == before
     assert set(out["launches"]) == {"lut_eval", "lut_eval_streamed",
-                                    "lut_layer"}
+                                    "lut_layer", "aig_sim", "xnor_popcount",
+                                    "fanin_matmul", "flash_attention"}
