@@ -29,11 +29,14 @@ Phases, each printing its own lines:
   6. profile  — one served batch per engine split into the stages of
                 ``LogicEngine.stages`` (host clock) and the device's busy
                 share (``torch.profiler``);
-  7. kernels2 — the kernel-bench path's kernels against their plain
-                versions on the card: the aig_sim walk, the public
-                ``aig_sim`` route and xnor_popcount bit for bit (random
-                AIGs at W 1 / 7 / 256; xnor with zeros and ragged B, N
-                and n), fanin_matmul within 1e-5 of max(1, |y|) and
+  7. kernels2 — every kernel the kernel-bench path runs against its
+                plain version on the card, on the bench's own inputs:
+                lut_layer, lut_eval and lut_eval_streamed bit for bit;
+                the aig_sim walk, the public ``aig_sim`` route and
+                xnor_popcount bit for bit (the bench AIG at W 1 / 7 /
+                256, a 2,500-AND plane too large for shared memory at
+                W 1 / 7 / 200; xnor with zeros and ragged B, N and n),
+                fanin_matmul within 1e-5 of max(1, |y|) and
                 flash_attention within 2e-4 (bench, window, ragged and
                 fully masked shapes; TF32 off in the plain version);
   8. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
@@ -41,9 +44,12 @@ Phases, each printing its own lines:
                 launch count at 0; each of its four kernels must launch;
   9. timing2  — each of those kernels at the bench shapes beside its
                 plain version, its bound, the library call that computes
-                the same function (``torch.matmul`` of the +-1 operands,
-                the masked dense product, ``scaled_dot_product_attention``)
-                and its device time per launch (``torch.profiler``).
+                the same function (the faster of ``torch._int_mm`` of the
+                int8 +-1 operands and the TF32 ``torch.matmul`` of the
+                float ones, both exact; the masked dense product in
+                float32; ``scaled_dot_product_attention``) and its device
+                time per launch and the library calls' device time per
+                call (``torch.profiler``).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -52,6 +58,7 @@ those lines. Without a CUDA device, or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -113,6 +120,21 @@ def time_ms(fn, iters: int = 200, reps: int = 7) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """TF32 matmuls on or off inside the block, as they were after."""
+    import torch
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
 
 
 def nbytes(*tensors) -> int:
@@ -222,6 +244,16 @@ def wide_random_netlist(seed: int, n_pis: int = 64, n_levels: int = 12,
         below = level
     outputs = [2 * v + int(rng.integers(0, 2)) for v in below[:40]]
     return MappedNetwork(n_pis, k, luts, outputs)
+
+
+def chain_literals(seed: int, n_pis: int, n_ands: int):
+    """f0, f1 of ``n_ands`` AND nodes, each reading two random literals
+    of earlier nodes (the constant and the inputs included)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hi = 2 * (1 + n_pis + np.arange(n_ands))
+    return ((rng.random(n_ands) * hi).astype(np.int32),
+            (rng.random(n_ands) * hi).astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -532,8 +564,8 @@ def phase_profile(torch, runs, batch, card):
 
 
 def phase_kernels2(torch, errs):
-    """The kernel-bench path's four kernels against their plain versions
-    on the card, at the bench shapes and ragged ones."""
+    """Every kernel of the kernel-bench path against its plain version on
+    the card: the bench's own inputs, and ragged shapes."""
     import numpy as np
     from repro_torch import synth
     from repro_torch.bench.kernels_bench import FULL, make_inputs
@@ -541,14 +573,16 @@ def phase_kernels2(torch, errs):
     from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.lut_eval import (lut_eval, lut_eval_ref,
+                                              lut_eval_streamed,
+                                              lut_eval_streamed_ref)
+    from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
     from repro_torch.kernels.xnor_popcount import (pack_bipolar,
                                                    xnor_matmul_packed,
                                                    xnor_matmul_ref,
                                                    xnor_popcount_ref)
     from repro_torch.synth.simulate import _simulate_np
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     inp = make_inputs(dev, FULL)
     print(f"[kernels2] bench inputs (two AIGs synthesized) in "
@@ -556,6 +590,24 @@ def phase_kernels2(torch, errs):
 
     def t(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    a = inp.lut_layer
+    shape = (*a.codes.shape, a.idx.shape[0], a.idx.shape[1], a.L)
+    check(errs, "lut_layer", lut_layer(a.codes, a.idx, a.tables, a.L),
+          lut_layer_ref(a.codes, a.idx, a.tables, a.L), f"bench {shape}")
+    a = inp.lut_eval
+    check(errs, "lut_eval",
+          lut_eval(a.words, a.leaf_idx, a.tt_bits, a.out_wires,
+                   n_wires=a.dp.n_wires),
+          lut_eval_ref(a.words, a.leaf_idx, a.tt_bits, a.out_wires,
+                       n_wires=a.dp.n_wires), "bench netlist")
+    targs = (a.words, a.tt_tiles, a.leaf_tiles, a.out_base, a.level_start)
+    check(errs, "lut_eval_streamed",
+          lut_eval_streamed(*targs, n_rows=a.tp.n_rows),
+          lut_eval_streamed_ref(*targs, n_rows=a.tp.n_rows), "bench netlist")
+    print(f"[kernels2] lut_layer {shape}, lut_eval and lut_eval_streamed "
+          f"(T={a.tp.tile_rows}) == plain on the bench's "
+          f"{a.mapped.n_luts}-LUT netlist at W={a.words.shape[1]}")
 
     a = inp.aig
     for n_words in (1, 7, 256):
@@ -574,6 +626,13 @@ def phase_kernels2(torch, errs):
                 f"simulate(use_kernel=True) W={n_words} differs")
     print(f"[kernels2] aig_sim walk == plain, aig_sim route == numpy walk "
           f"on the bench AIG ({a.f0.shape[0]} ANDs), W in 1/7/256")
+    f0, f1 = (t(f) for f in chain_literals(5, 16, 2500))
+    for n_words in (1, 7, 200):     # 2,517 rows: the plane in device memory
+        wt = t(synth.random_words(16, n_words, seed=n_words).view(np.int32))
+        check(errs, "aig_sim", aig_sim_walk(wt, f0, f1),
+              aig_sim_ref(wt, f0, f1, 16), f"2500-AND chain W={n_words}")
+    print("[kernels2] aig_sim walk == plain on a 2,500-AND chain (plane in "
+          "device memory), W in 1/7/200")
 
     rng = np.random.default_rng(11)
     xshapes = [(256, 4096, 256, False), (256, 4096, 256, True),
@@ -605,9 +664,10 @@ def phase_kernels2(torch, errs):
             idx = t(rng.integers(0, n_in, (N, K)))
             w = t(rng.normal(size=(N, K)), torch.float32)
             bias = t(rng.normal(size=(N,)), torch.float32)
+        with tf32(False):
+            want = fanin_matmul_ref(x, idx, w, bias)
         check_close(errs, "fanin_matmul", fanin_matmul(x, idx, w, bias),
-                    fanin_matmul_ref(x, idx, w, bias), 1e-5,
-                    f"{(B, n_in, N, K)}", relative=True)
+                    want, 1e-5, f"{(B, n_in, N, K)}", relative=True)
     print(f"[kernels2] fanin_matmul within 1e-5 of plain on "
           f"{len(fshapes)} shapes")
 
@@ -624,10 +684,11 @@ def phase_kernels2(torch, errs):
             q = t(rng.normal(size=(b, sq, h, dh)), torch.float32)
             k = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
             v = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
+        with tf32(False):
+            want = attention_ref(q, k, v, causal=causal, window=win)
         check_close(errs, "flash_attention",
                     flash_attention(q, k, v, causal=causal, window=win),
-                    attention_ref(q, k, v, causal=causal, window=win), 2e-4,
-                    f"{(b, sq, sk, h, kv, dh, causal, win)}")
+                    want, 2e-4, f"{(b, sq, sk, h, kv, dh, causal, win)}")
     print(f"[kernels2] flash_attention within 2e-4 of plain on "
           f"{len(ashapes)} shapes")
     return inp
@@ -655,7 +716,9 @@ def phase_timing2(torch, inp, counts, errs, card):
     """The bench-path kernels at the bench shapes: wrapper time (CUDA
     events), the plain version's (few calls), the least bytes / operations
     of this run's inputs, the library call's time and the device time per
-    launch from ``torch.profiler``."""
+    launch from ``torch.profiler``. Each library call is first held to
+    the kernel's result: exactly for xnor, within the kernel's tolerance
+    for the float ones (TF32 off)."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
@@ -668,11 +731,11 @@ def phase_timing2(torch, inp, counts, errs, card):
                                                    xnor_matmul_packed,
                                                    xnor_popcount_ref)
     rows, fns = [], {}
+    lib_fns = {}        # label -> (library call, TF32 on)
 
-    def row(name, fn, plain, library, n_bytes, n_ops, ops_per_s=ALU_OPS_PER_S):
+    def row(name, fn, plain, lib_ms, n_bytes, n_ops, ops_per_s=ALU_OPS_PER_S):
         ms = time_ms(fn)
         plain_ms = time_ms(plain, iters=3, reps=3)
-        lib_ms = time_ms(library) if library else None
         b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
         src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -695,13 +758,38 @@ def phase_timing2(torch, inp, counts, errs, card):
         nbytes(a.words, a.f0_t, a.f1_t) + 4 * plane_rows * n_words,
         3 * n_ands * n_words)
 
+    # xnor's library yardsticks, both exact on +-1 operands: the int8
+    # product in int32, and the TF32 float product (+-1 products summed
+    # in float32, exact below 2^24)
     x, w = inp.xnor.x, inp.xnor.w
     n = x.shape[1]
     xp, wp = pack_bipolar(x), pack_bipolar(w)
     B, W = xp.shape
     N = wp.shape[0]
+    got = xnor_matmul_packed(xp, wp, n)
+    libs = {}
+    with tf32(True):
+        check({}, "xnor_popcount", (x @ w.T).to(torch.int32), got,
+              "against the TF32 matmul")
+        libs["TF32 matmul"] = time_ms(lambda: x @ w.T)
+    lib_fns["xnor_popcount TF32 matmul"] = (lambda: x @ w.T, True)
+    x8, w8 = (torch.where(t_ > 0, 1, -1).to(torch.int8) for t_ in (x, w))
+    for w8t in (w8.t(), w8.t().contiguous()):
+        try:
+            check({}, "xnor_popcount", torch._int_mm(x8, w8t), got,
+                  "against the int8 matmul")
+        except RuntimeError as e:            # layout this build refuses
+            print(f"[timing2] torch._int_mm refused a layout: "
+                  f"{str(e).splitlines()[0][:120]}")
+            continue
+        int_mm = lambda w8t=w8t: torch._int_mm(x8, w8t)  # noqa: E731
+        libs["int8 _int_mm"] = time_ms(int_mm)
+        lib_fns["xnor_popcount int8 _int_mm"] = (int_mm, False)
+        break
+    print("[timing2] xnor_popcount library calls: " + ", ".join(
+        f"{k} {v:.5f} ms" for k, v in libs.items()) + f" on {card}")
     row("xnor_popcount", lambda: xnor_matmul_packed(xp, wp, n),
-        lambda: xnor_popcount_ref(xp, wp, n), lambda: x @ w.T,
+        lambda: xnor_popcount_ref(xp, wp, n), min(libs.values()),
         nbytes(xp, wp) + 4 * B * N, 3 * B * N * W + 2 * B * N)
 
     f = inp.fanin
@@ -709,15 +797,19 @@ def phase_timing2(torch, inp, counts, errs, card):
     N, K = f.idx.shape
     w_dense = torch.zeros((N, n_in), dtype=torch.float32, device=f.x.device)
     w_dense.scatter_add_(1, f.idx.long(), f.w)
-    check_close({}, "fanin_matmul", dense_equivalent(f.x, w_dense, f.bias),
-                fanin_matmul(f.x, f.idx, f.w, f.bias), 1e-4,
-                "against the masked dense product", relative=True)
     n_cols = int(torch.unique(f.idx).numel())
-    row("fanin_matmul", lambda: fanin_matmul(f.x, f.idx, f.w, f.bias),
-        lambda: fanin_matmul_ref(f.x, f.idx, f.w, f.bias),
-        lambda: dense_equivalent(f.x, w_dense, f.bias),
-        4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N,
-        2 * B * N * K + B * N, F32_OPS_PER_S)
+    dense = lambda: dense_equivalent(f.x, w_dense, f.bias)  # noqa: E731
+    lib_fns["fanin_matmul dense product"] = (dense, False)
+    with tf32(False):
+        check_close({}, "fanin_matmul",
+                    dense_equivalent(f.x, w_dense, f.bias),
+                    fanin_matmul(f.x, f.idx, f.w, f.bias), 1e-4,
+                    "against the masked dense product", relative=True)
+        row("fanin_matmul", lambda: fanin_matmul(f.x, f.idx, f.w, f.bias),
+            lambda: fanin_matmul_ref(f.x, f.idx, f.w, f.bias),
+            time_ms(dense),
+            4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N,
+            2 * B * N * K + B * N, F32_OPS_PER_S)
 
     q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
     b, sq, h, dh = q.shape
@@ -733,11 +825,14 @@ def phase_timing2(torch, inp, counts, errs, card):
         ke, ve = (t_.repeat_interleave(h // kvh, dim=1) for t_ in (kt, vt))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, ke, ve, is_causal=True)
-    check_close({}, "flash_attention", sdpa().transpose(1, 2),
-                flash_attention(q, k, v), 2e-4, "against the library call")
-    row("flash_attention", lambda: flash_attention(q, k, v),
-        lambda: attention_ref(q, k, v), sdpa,
-        nbytes(q, k, v) + 4 * q.numel(), 4 * dh * pairs, F32_OPS_PER_S)
+    lib_fns["flash_attention SDPA"] = (sdpa, False)
+    with tf32(False):
+        check_close({}, "flash_attention", sdpa().transpose(1, 2),
+                    flash_attention(q, k, v), 2e-4,
+                    "against the library call")
+        row("flash_attention", lambda: flash_attention(q, k, v),
+            lambda: attention_ref(q, k, v), time_ms(sdpa),
+            nbytes(q, k, v) + 4 * q.numel(), 4 * dh * pairs, F32_OPS_PER_S)
 
     # device time per launch: one profiler session over 10 calls of each
     for fn in fns.values():
@@ -762,6 +857,22 @@ def phase_timing2(torch, inp, counts, errs, card):
                  "not seen by the profiler (device events: "
                  + ", ".join(sorted({e.key[:60] for e in events})) + ")")
               + f" on {card}")
+    # the library calls' device time: every device event of 10 calls
+    for label, (fn, on) in lib_fns.items():
+        with tf32(on):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        print(f"[timing2] library {label} device time {us / 10:.2f} us per "
+              f"call on {card}")
     return rows
 
 

@@ -19,10 +19,11 @@ the rows differ:
     the reference's ``aig_sim_pallas``, against which the routed
     ``aig_sim_pallas_us`` is the "after" row.
 
-Times on the card come from CUDA events around ``iters`` calls after a
-warm-up, on the CPU from the host clock.
+Times on the card come from CUDA events around a row's calls after a
+warm-up, on the CPU from the host clock. ``run(sizes=...)`` takes other
+shapes (``FULL`` is the reference's).
 
-    python -m repro_torch.bench.kernels_bench [--device cpu] [--small]
+    python -m repro_torch.bench.kernels_bench [--device cpu]
         [--out BENCH_kernels_torch.json]
 
 prints ``[kernels] name: value`` lines and writes JSON only with
@@ -36,7 +37,7 @@ import json
 import platform
 import time
 from types import SimpleNamespace
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -57,9 +58,6 @@ class Sizes:
 
 
 FULL = Sizes()
-SMALL = Sizes(lut_layer=(32, 16, 16, 3, 3), aig=(5, 2, 4),
-              lut_eval=(6, 2, 4), xnor=(9, 100, 7), fanin=(8, 64, 40, 4),
-              flash=(1, 40, 4, 2, 8))
 
 
 def _random_aig(rng, n_vars: int, n_outs: int):
@@ -163,11 +161,10 @@ def timer(device: torch.device) -> Callable[..., float]:
     return t
 
 
-def run(device: DeviceLike = None, sizes: Sizes = FULL,
-        iters: Optional[int] = None) -> Dict[str, float]:
+def run(device: DeviceLike = None, sizes: Sizes = FULL) -> Dict[str, float]:
     """Every row of the reference's bench (plus ``aig_sim_walk_us``) on
     ``device`` (the card unless ``"cpu"``); returns name -> µs per call
-    (``*_x`` rows are ratios). ``iters`` caps every row's call count."""
+    (``*_x`` rows are ratios)."""
     from repro_torch.kernels.aig_sim import aig_sim, aig_sim_ref, aig_sim_walk
     from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -180,10 +177,7 @@ def run(device: DeviceLike = None, sizes: Sizes = FULL,
 
     dev = resolve_device(device)
     inp = make_inputs(dev, sizes)
-    t0 = timer(dev)
-
-    def t(fn, n=20):
-        return t0(fn, n if iters is None else min(n, iters))
+    t = timer(dev)
 
     out = {}
     a = inp.lut_layer
@@ -253,20 +247,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain versions (default: the card)")
-    ap.add_argument("--small", action="store_true",
-                    help="reduced shapes (a quick run on the CPU)")
-    ap.add_argument("--iters", type=int, default=None,
-                    help="cap on the calls timed per row")
     ap.add_argument("--out", default=None,
                     help="write the rows as JSON here "
                          "(BENCH_kernels_torch.json by convention)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    sizes = SMALL if args.small else FULL
-    rows = run(dev, sizes, iters=args.iters)
+    rows = run(dev, FULL)
     if args.out:
         doc = {"section": "kernels", "meta": dict(device_meta(dev),
-                                                  sizes=dataclasses.asdict(sizes)),
+                                                  sizes=dataclasses.asdict(FULL)),
                "rows": [{"name": f"kernels/{k}", "us_per_call": v}
                         for k, v in rows.items()]}
         with open(args.out, "w") as f:

@@ -23,9 +23,8 @@
 // banks) and reused by all 64 rows; the bias stays in a register.
 // x rows are read from device memory: a 64-row tile of 4096 inputs is
 // 1 MB, which does not fit. Neighbouring threads take neighbouring
-// neurons, so the output stores coalesce. When the staged indices and
-// weights exceed 48 KB (K > 191) they are read from device memory
-// instead (use_smem = 0, chosen by the launcher).
+// neurons, so the output stores coalesce. The staged indices and
+// weights must fit 48 KB: K <= 191 (the wrapper refuses more).
 
 #include <cuda_runtime.h>
 
@@ -40,7 +39,7 @@ __global__ void __launch_bounds__(kTileN * kRowsY)
 fanin_matmul_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                     const float* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int B, int n_in, int N, int K, int Kp, int use_smem) {
+                    int B, int n_in, int N, int K, int Kp) {
   extern __shared__ int smem[];
   int* s_idx = smem;                                        // (kTileN, Kp)
   float* s_w = reinterpret_cast<float*>(smem + kTileN * Kp);  // (kTileN, Kp)
@@ -49,20 +48,18 @@ fanin_matmul_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   const int nj = min(kTileN, N - j0);
   const int tid = threadIdx.y * kTileN + threadIdx.x;
 
-  if (use_smem) {
-    for (int i = tid; i < nj * K; i += kTileN * kRowsY) {
-      const int r = i / K, c = i - r * K;
-      s_idx[r * Kp + c] = idx[size_t(j0) * K + i];
-      s_w[r * Kp + c] = w[size_t(j0) * K + i];
-    }
+  for (int i = tid; i < nj * K; i += kTileN * kRowsY) {
+    const int r = i / K, c = i - r * K;
+    s_idx[r * Kp + c] = idx[size_t(j0) * K + i];
+    s_w[r * Kp + c] = w[size_t(j0) * K + i];
   }
   __syncthreads();
 
   const int jl = threadIdx.x;
   if (jl >= nj) return;
   const int j = j0 + jl;
-  const int* my_idx = use_smem ? s_idx + jl * Kp : idx + size_t(j) * K;
-  const float* my_w = use_smem ? s_w + jl * Kp : w + size_t(j) * K;
+  const int* my_idx = s_idx + jl * Kp;
+  const float* my_w = s_w + jl * Kp;
   const float bj = bias[j];
   const int b1 = min(B, b0 + kTileB);
   for (int b = b0 + threadIdx.y; b < b1; b += kRowsY) {
@@ -81,20 +78,19 @@ extern "C" {
 
 // x (B, n_in) f32; idx (N, K) int32 in [0, n_in); w (N, K) f32;
 // bias (N,) f32; out (B, N) f32. All contiguous, on the device of
-// `stream`. Returns a cudaError_t.
+// `stream`; K <= 191. Returns a cudaError_t.
 int fanin_matmul_launch(const void* x, const void* idx, const void* w,
                         const void* bias, void* out, int B, int n_in, int N,
                         int K, void* stream) {
   const int Kp = K | 1;                         // odd stride: no conflicts
-  const size_t staged = size_t(kTileN) * Kp * (sizeof(int) + sizeof(float));
-  const int use_smem = staged <= kStaticSmem;
-  const size_t smem = use_smem ? staged : 0;
+  const size_t smem = size_t(kTileN) * Kp * (sizeof(int) + sizeof(float));
+  if (smem > kStaticSmem) return cudaErrorInvalidValue;
   const dim3 grid((N + kTileN - 1) / kTileN, (B + kTileB - 1) / kTileB);
   const dim3 block(kTileN, kRowsY);
   fanin_matmul_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(out), B, n_in, N, K, Kp, use_smem);
+      static_cast<float*>(out), B, n_in, N, K, Kp);
   return cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Checks float32 / int32 types, shapes and devices, allocates the output
 and launches the kernel on torch's current stream for CUDA tensors, or
 runs the plain version (``ref.py``) for CPU tensors; counts its launches
 in ``.launches``. Fanin indices must lie in ``[0, n_in)``: the kernel
-reads ``x[b, idx[j, k]]`` unchecked.
+reads ``x[b, idx[j, k]]`` unchecked. The kernel stages a block's indices
+and weights in 48 KB of shared memory, so it takes K <= ``MAX_K``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from .ref import fanin_matmul_ref
 
 TILE_B = 64            # batch rows per block (csrc/fanin_matmul.cu)
 MAX_GRID_Y = 65_535
+MAX_K = 191            # 32 neurons x (K | 1) x 8 bytes staged <= 48 KB
 
 
 def fanin_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -42,6 +44,8 @@ def fanin_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return out
     if -(-b // TILE_B) > MAX_GRID_Y:
         raise ValueError(f"batch of {b} rows exceeds the kernel's grid")
+    if k > MAX_K:
+        raise ValueError(f"fanin K={k} exceeds the kernel's {MAX_K}")
     err = build.library().fanin_matmul_launch(
         x.data_ptr(), idx.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n_in, n, k, stream_of(dev))

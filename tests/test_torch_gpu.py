@@ -129,6 +129,30 @@ def test_aig_sim_walk_and_route_match_plain(cuda_device, n_words):
         aig_sim(words, f0, f1, 8, device="cpu"))
 
 
+def chain_literals(seed, n_pis, n_ands):
+    """f0, f1 of ``n_ands`` AND nodes, each reading two random literals of
+    earlier nodes (the constant and the inputs included)."""
+    rng = np.random.default_rng(seed)
+    hi = 2 * (1 + n_pis + np.arange(n_ands))
+    return ((rng.random(n_ands) * hi).astype(np.int32),
+            (rng.random(n_ands) * hi).astype(np.int32))
+
+
+@pytest.mark.parametrize("n_words", [7, 200])
+def test_aig_sim_walk_from_device_memory(cuda_device, n_words):
+    """A 2,500-AND plane (2,517 rows) does not fit shared memory at 32
+    words per block: the walk reads and writes the plane in device
+    memory."""
+    f0, f1 = chain_literals(n_words, 16, 2500)
+    words = synth.random_words(16, n_words, seed=n_words)
+    args = [_i32(a, cuda_device) for a in (words, f0, f1)]
+    launches = aig_sim_walk.launches
+    got = aig_sim_walk(*args)
+    torch.cuda.synchronize()
+    assert aig_sim_walk.launches == launches + 1
+    assert torch.equal(got, aig_sim_ref(*args, 16))
+
+
 @pytest.mark.parametrize("B,n,N", [(256, 4096, 256), (37, 100, 70)])
 def test_xnor_kernel_matches_plain(cuda_device, B, n, N):
     rng = np.random.default_rng(B)
@@ -162,6 +186,19 @@ def test_fanin_kernel_matches_plain(cuda_device, B, n_in, N, K):
     assert err <= 1e-5
 
 
+def test_fanin_kernel_refuses_k_beyond_its_staging(cuda_device):
+    from repro_torch.kernels.fanin_matmul.ops import MAX_K
+    x = torch.zeros((4, 300), device=cuda_device)
+    idx = torch.zeros((8, MAX_K + 1), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((8, MAX_K + 1), device=cuda_device)
+    bias = torch.zeros((8,), device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        fanin_matmul(x, idx, w, bias)
+    got = fanin_matmul(x, idx[:, :MAX_K].contiguous(),
+                       w[:, :MAX_K].contiguous(), bias)
+    assert torch.equal(got, torch.zeros((4, 8), device=cuda_device))
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
     (1, 1024, 1024, 4, 2, 64, True, 0), (2, 100, 77, 4, 1, 32, True, 24)])
 def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
@@ -184,9 +221,9 @@ def test_entry_points_without_a_card_raise():
     the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    from repro_torch.bench.kernels_bench import SMALL, run
+    from repro_torch.bench.kernels_bench import run
     with pytest.raises(NoCudaDeviceError):
-        run(sizes=SMALL, iters=1)
+        run()
     aig = synth.AIG(2)
     aig.outputs = [aig.and2(2, 4)]
     with pytest.raises(NoCudaDeviceError):

@@ -16,6 +16,9 @@ from repro_torch.device import NoCudaDeviceError
 
 REF_BENCH = (pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
              / "kernels_bench.py")
+SMALL = kb.Sizes(lut_layer=(32, 16, 16, 3, 3), aig=(5, 2, 4),
+                 lut_eval=(6, 2, 4), xnor=(9, 100, 7), fanin=(8, 64, 40, 4),
+                 flash=(1, 40, 4, 2, 8))
 
 
 def _reference_keys():
@@ -36,7 +39,7 @@ def _reference_keys():
 
 @pytest.fixture(scope="module")
 def small_rows():
-    return kb.run(device="cpu", sizes=kb.SMALL, iters=1)
+    return kb.run(device="cpu", sizes=SMALL)
 
 
 def test_run_returns_every_reference_row(small_rows):
@@ -65,15 +68,16 @@ def test_inputs_follow_the_reference_draws():
     np.testing.assert_array_equal(inp.xnor.x.numpy(), x)
 
 
-def test_cli_writes_json_only_with_out(tmp_path, capsys):
-    assert kb.main(["--device", "cpu", "--small", "--iters", "1"]) == 0
+def test_cli_writes_json_only_with_out(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(kb, "FULL", SMALL)      # the reference's shapes
+    assert kb.main(["--device", "cpu"]) == 0
     assert not list(tmp_path.iterdir())
     assert "[kernels] xnor_pallas_us:" in capsys.readouterr().out
     out = tmp_path / "BENCH_kernels_torch.json"
-    assert kb.main(["--device", "cpu", "--small", "--iters", "1",
-                    "--out", str(out)]) == 0
+    assert kb.main(["--device", "cpu", "--out", str(out)]) == 0
     doc = json.loads(out.read_text())
     assert doc["section"] == "kernels" and doc["meta"]["device"] == "cpu"
+    assert doc["meta"]["sizes"]["xnor"] == list(SMALL.xnor)
     names = {r["name"] for r in doc["rows"]}
     assert {f"kernels/{k}" for k in _reference_keys()} <= names
 
@@ -82,4 +86,4 @@ def test_bench_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(NoCudaDeviceError):
-        kb.run(sizes=kb.SMALL, iters=1)
+        kb.run(sizes=SMALL)
