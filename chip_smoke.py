@@ -6,13 +6,18 @@
 Phases, each printing its own lines:
   1. card     — ``nvidia-smi`` name and power limit, torch's device name;
   2. build    — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for
-                sm_90a (seconds, and each kernel's registers);
+                sm_90a (seconds, and each kernel's registers and stack
+                frame); both lut_eval kernels must have none;
   3. kernels  — every kernel against its plain torch version on the
                 card, bit for bit (``torch.equal``): lut_layer on JSC-S
                 layer shapes and a ragged sweep, both lut_eval kernels
                 on random mapped netlists (W in {1, 7, 130}, tile_rows in
                 {8, 32}, the constant network, and a ~2,000-LUT,
-                depth-12 netlist);
+                depth-12 netlist whose plan streams through shared
+                memory one level at a time), and on random k-LUT
+                netlists for k = 1..6 with the streamed plan staged whole,
+                streamed in chunks of fewer tiles than a level, and
+                streamed with the plane in device memory;
   4. serve    — the port's main path: a seeded full-width JSC-S is
                 compiled to truth tables and a mapped 6-LUT netlist and
                 serves 8 requests of 64 test rows through
@@ -37,11 +42,15 @@ Phases, each printing its own lines:
                 256, a 2,500-AND plane too large for shared memory at
                 W 1 / 7 / 200; xnor with zeros and ragged B, N and n),
                 fanin_matmul within 1e-5 of max(1, |y|) and
-                flash_attention within 2e-4 (bench, window, ragged and
-                fully masked shapes; TF32 off in the plain version);
+                flash_attention within 2e-4 in float32 (TF32 off in the
+                plain version) and 2e-2 in bfloat16 (the reference
+                test's tolerances): bench, window, ragged, GQA and fully
+                masked shapes, every dh template (16, 32, 64, 128) and
+                every copy width of its K / V loads;
   8. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
                 once on the card at the reference's shapes, from every
                 launch count at 0; each of its four kernels must launch;
+                its rows are printed;
   9. timing2  — each of those kernels at the bench shapes beside its
                 plain version, its bound, the library call that computes
                 the same function (the faster of ``torch._int_mm`` of the
@@ -49,7 +58,9 @@ Phases, each printing its own lines:
                 float ones, both exact; the masked dense product in
                 float32; ``scaled_dot_product_attention``) and its device
                 time per launch and the library calls' device time per
-                call (``torch.profiler``).
+                call (``torch.profiler``); beside them a bfloat16 row of
+                flash_attention at the bench shape, with SDPA on the
+                bf16 operands as its library call.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -62,6 +73,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -90,6 +102,8 @@ KERNELS = {
                         "flash_attention.py:73"),
 }
 F32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
+TF32_OPS_PER_S = 495e12       # H100 SXM dense tensor-core peaks
+BF16_OPS_PER_S = 989e12
 BENCH_KERNELS = ("aig_sim", "xnor_popcount", "fanin_matmul",
                  "flash_attention")
 
@@ -120,6 +134,28 @@ def time_ms(fn, iters: int = 200, reps: int = 7) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def device_us(fn, kernel: str, n: int = 20):
+    """The profiler's device time per launch of ``kernel`` (a substring of
+    the kernel symbol) over ``n`` back-to-back calls of ``fn``, and the
+    launches seen; (None, 0) when the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    launches = sum(e.count for e in mine)
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in mine)
+    return (us / launches if launches else None), launches
 
 
 @contextlib.contextmanager
@@ -185,7 +221,7 @@ def check_close(errs, name, got, want, tol, what, relative=False):
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name} {what}: {got.shape}/{got.dtype} vs "
             f"{want.shape}/{want.dtype}")
-    diff = (got - want).abs()
+    diff = (got.float() - want.float()).abs()
     err = float(diff.max()) if got.numel() else 0.0
     errs[name] = max(errs.get(name, 0.0), err)
     scaled = (float((diff / want.abs().clamp(min=1.0)).max())
@@ -218,11 +254,11 @@ def constant_mapped():
 
 
 def wide_random_netlist(seed: int, n_pis: int = 64, n_levels: int = 12,
-                        width: int = 170, k: int = 6):
-    """A random mapped netlist of n_levels * width LUTs (2,040 at the
-    defaults, the JSC-M scale) whose depth is exactly ``n_levels``:
-    every LUT reads one wire of the level below and up to k-1 other
-    earlier wires, with a random INIT vector."""
+                        width: int = 170, k: int = 6, min_leaves: int = 2):
+    """A random mapped k-LUT netlist of n_levels * width LUTs (2,040 at
+    the defaults, the JSC-M scale) whose depth is exactly ``n_levels``:
+    every LUT has ``min_leaves`` to k leaves, one wire of the level below
+    and the others earlier wires, with a random INIT vector."""
     import numpy as np
     from repro_torch.synth import MappedLUT, MappedNetwork
     rng = np.random.default_rng(seed)
@@ -232,7 +268,7 @@ def wide_random_netlist(seed: int, n_pis: int = 64, n_levels: int = 12,
     for _ in range(n_levels):
         level = []
         for _ in range(width):
-            m = int(rng.integers(2, k + 1))
+            m = int(rng.integers(min_leaves, k + 1))
             leaves = [int(rng.choice(below))]
             leaves += [int(v) for v in rng.choice(earlier, m - 1)]
             tt = (int.from_bytes(rng.bytes(8), "little")
@@ -274,6 +310,37 @@ def phase_card(torch):
     return card
 
 
+def kernel_name(symbol: str) -> str:
+    """``lut_eval_kernel<6>`` / ``flash_attention_kernel<bf16,64>`` from
+    a mangled kernel symbol."""
+    m = re.search(r"([a-z_]+_kernel)(I.*?EE)?", symbol)
+    if not m:
+        return symbol
+    args, rest = [], m.group(2) or ""
+    if rest.startswith("I13__nv_bfloat16"):
+        args.append("bf16")
+    elif rest.startswith("If"):
+        args.append("float")
+    args += [v if kind == "i" else ("smem" if v == "1" else "global")
+             for kind, v in re.findall(r"L([ib])(\d+)E", rest)]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str):
+    """(kernel, registers line, stack-frame line) per entry function of
+    an ``nvcc -Xptxas=-v`` log."""
+    out, name, stack = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = kernel_name(line.rsplit(" ", 1)[-1])
+        elif "bytes stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and name:
+            out.append((name, line.split(":", 1)[-1].strip(), stack))
+            name, stack = None, ""
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -282,9 +349,17 @@ def phase_build():
     dt = time.perf_counter() - t0
     print(f"[build] {len(build.sources())} sources -> {build.LIB_NAME} "
           f"in {dt:.2f}s (nvcc {' '.join(build.NVCC_FLAGS)})")
-    for line in build.build_log().splitlines():
-        if "Compiling entry function" in line or "Used" in line:
-            print("[build]   " + line.split(":", 1)[-1].strip())
+    report = ptxas_report(build.build_log())
+    for name, regs, stack in report:
+        print(f"[build]   {name}: {regs}; {stack}")
+    lut = [(n, st) for n, _, st in report if "lut_eval" in n]
+    require(len(lut) == 18, f"ptxas reported {len(lut)} lut_eval kernels, "
+            "expected 18 (k = 1..6: the monolithic walk, the streamed walk "
+            "with the plane in shared and in device memory)")
+    for name, stack in lut:
+        require(stack.startswith("0 bytes stack frame"),
+                f"{name} keeps a stack frame: {stack}")
+    print("[build] every lut_eval walk, k = 1..6: 0 bytes of stack")
 
 
 def phase_kernels(torch, errs):
@@ -292,8 +367,11 @@ def phase_kernels(torch, errs):
     from repro_torch import synth
     from repro_torch.kernels.lut_eval import (level_starts, lut_eval,
                                               lut_eval_ref, lut_eval_streamed,
-                                              lut_eval_streamed_ref)
+                                              lut_eval_streamed_ref,
+                                              plan_streamed)
+    from repro_torch.kernels.lut_eval.ops import streamed_smem_bytes, tt_stride
     from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+    from repro_torch.kernels.spec import DEFAULT_SPEC
     from repro_torch.synth.executor import _compile_plan
     dev = torch.device("cuda")
 
@@ -354,6 +432,17 @@ def phase_kernels(torch, errs):
                       lut_eval_streamed(pw, *targs, n_rows=tp.n_rows),
                       lut_eval_streamed_ref(pw, *targs, n_rows=tp.n_rows),
                       f"{label} W={n_words} T={tile_rows}")
+            if label.startswith("wide"):
+                n_tiles = tp.out_base.shape[0]
+                bw, smem, chunk = plan_streamed(
+                    tp.n_rows, n_words, int(tp.level_of_tile.max()) + 1,
+                    n_tiles, tp.tile_rows, mapped.k)
+                require(chunk < n_tiles, f"{label}: its plan of {n_tiles} "
+                        "tiles was staged whole, not streamed")
+                print(f"[kernels] {label} W={n_words} T={tp.tile_rows}: plan "
+                      f"streamed in chunks of {chunk} of {n_tiles} tiles, bw "
+                      f"{bw}, plane in {'shared' if smem else 'device'} "
+                      "memory")
             if label.startswith("wide") and n_words == 130:
                 ms = time_ms(lambda: lut_eval(pw, *args, n_wires=dp.n_wires))
                 sms = time_ms(lambda: lut_eval_streamed(pw, *targs,
@@ -364,6 +453,53 @@ def phase_kernels(torch, errs):
               f"{mapped.n_luts} LUTs, depth {mapped.depth}, W in 1/7/130, "
               f"T in 8/32")
     print(f"[kernels] host synthesis of the test netlists {host_s:.1f}s")
+
+    # the streamed walk's branches at every fold width: the plan staged
+    # whole beside the plane (the default budget), streamed in chunks of
+    # fewer tiles than a level beside the plane (a budget of ten tiles),
+    # and streamed with the plane in device memory (two one-tile regions)
+    for k in range(1, 7):
+        mapped = wide_random_netlist(k, n_pis=20, n_levels=4, width=70, k=k,
+                                     min_leaves=1)
+        plan = _compile_plan(mapped)
+        dp = synth.compile_device_plan(mapped, plan)
+        tp = synth.compile_tile_plan(plan, mapped.n_pis, k, 8)
+        ls = level_starts(tp.level_of_tile)
+        targs = [i32(a) for a in (tp.tt_tiles, tp.leaf_tiles, tp.out_base,
+                                  ls)]
+        args = [i32(a) for a in (dp.leaf_idx, dp.tt_bits, dp.out_wires)]
+        n_levels, n_tiles = ls.shape[0] - 1, tp.out_base.shape[0]
+        widest = int(np.diff(ls).max())
+        budgets = {
+            "staged": DEFAULT_SPEC,
+            "streamed": DEFAULT_SPEC.with_tile(
+                smem_budget_bytes=10 * 4 * 8 * (tt_stride(k) + k) + 512),
+            "device": DEFAULT_SPEC.with_tile(smem_budget_bytes=64 +
+                streamed_smem_bytes(n_levels, n_tiles, 8, k, 1, 0, 0, False))}
+        seen = []
+        for n_words in (1, 7, 40):
+            pw = i32(synth.random_words(mapped.n_pis, n_words, seed=k))
+            check(errs, "lut_eval", lut_eval(pw, *args, n_wires=dp.n_wires),
+                  lut_eval_ref(pw, *args, n_wires=dp.n_wires),
+                  f"k={k} W={n_words}")
+            for mode, spec in budgets.items():
+                bw, smem, chunk = plan_streamed(tp.n_rows, n_words, n_levels,
+                                                n_tiles, 8, k, spec)
+                require((chunk >= n_tiles, smem) == (mode == "staged",
+                                                     mode != "device")
+                        and (mode == "staged" or chunk < widest),
+                        f"k={k} W={n_words} {mode}: chunk {chunk} of "
+                        f"{n_tiles} tiles, plane in shared memory {smem}")
+                check(errs, "lut_eval_streamed",
+                      lut_eval_streamed(pw, *targs, n_rows=tp.n_rows,
+                                        spec=spec),
+                      lut_eval_streamed_ref(pw, *targs, n_rows=tp.n_rows),
+                      f"k={k} W={n_words} {mode}")
+                if n_words == 40:
+                    seen.append(f"{mode} (chunk {chunk}, bw {bw})")
+        print(f"[kernels] k={k}: {mapped.n_luts} LUTs in {n_tiles} tiles of "
+              f"8, lut_eval and lut_eval_streamed == plain at W in 1/7/40; "
+              "streamed walk " + ", ".join(seen))
 
 
 def phase_serve(torch):
@@ -448,11 +584,13 @@ def phase_timing(torch, runs, batch, errs, card):
     beside it. The bound counts the least bytes the function moves
     (``netlist_work``; lut_layer's tables at their stored width), the
     bytes of the padded plan tensors are printed beside it."""
+    from repro_torch.kernels.lut_eval import plan_streamed, streamed_smem_bytes
     from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
     rows = []
 
     def row(name, fn, plain, n_bytes, n_ops, launches, plan_bytes):
         ms, plain_ms = time_ms(fn), time_ms(plain)
+        dev, n = device_us(fn, f"{name}_kernel")
         b_ms, b_by = bound(n_bytes, n_ops)
         src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -462,12 +600,25 @@ def phase_timing(torch, runs, batch, errs, card):
                      "bound_by": b_by, "library_ms": None})
         print(f"[timing] {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms, "
               f"bound {b_ms:.7f} ms by {b_by}: {n_bytes} least bytes, "
-              f"{n_ops} ops; plan tensors {plan_bytes} bytes) on {card}")
+              f"{n_ops} ops; plan tensors {plan_bytes} bytes); device "
+              + (f"{dev:.2f} us per launch back to back ({n} launches)"
+                 if n else "time not seen by the profiler") + f" on {card}")
 
     for name in ("lut_eval_streamed", "lut_eval"):
         eng, launches = runs[name]
         ex = eng.bitnet.executor
         words = eng.stages(batch)["quantize+pack"]()
+        if name == "lut_eval_streamed":
+            tp = ex.tp
+            geom = (int(tp.level_of_tile.max()) + 1, tp.n_tiles,
+                    tp.tile_rows, tp.k)
+            bw, smem, chunk = plan_streamed(tp.n_rows, words.shape[1], *geom)
+            require(chunk >= tp.n_tiles and smem, "the served plan is not "
+                    "staged whole beside the plane in shared memory")
+            used = streamed_smem_bytes(*geom, chunk, tp.n_rows, bw, smem)
+            print(f"[timing] served JSC-S W={words.shape[1]}: the streamed "
+                  f"plan ({tp.n_tiles} tiles) staged whole, {used} bytes of "
+                  f"shared memory with the plane, one block of {bw} words")
         check(errs, name, ex.plane(words), ex.plane(words, plain=True),
               f"served JSC-S batch W={words.shape[1]}")
         n_bytes, n_ops = netlist_work(eng.bitnet.mapped, words.shape[1])
@@ -671,26 +822,40 @@ def phase_kernels2(torch, errs):
     print(f"[kernels2] fanin_matmul within 1e-5 of plain on "
           f"{len(fshapes)} shapes")
 
+    # bench, window, ragged / GQA, Sq != Sk, dh 128, fully masked rows;
+    # then the 16 template (dh 8) and the K / V copy widths (dh 6, 5, 7,
+    # 12: 8- and 4-byte copies in float32, 4-, 2- and 8-byte in bf16)
     ashapes = [(1, 1024, 1024, 4, 2, 64, True, 0),
                (1, 300, 300, 4, 1, 32, True, 64),
                (2, 130, 77, 4, 2, 16, True, 0),
                (1, 33, 70, 4, 4, 8, False, 0),
                (1, 257, 257, 2, 1, 128, True, 0),
-               (1, 300, 130, 1, 1, 8, True, 4)]
-    for (b, sq, sk, h, kv, dh, causal, win) in ashapes:
-        if sq == 1024:
-            q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
-        else:
-            q = t(rng.normal(size=(b, sq, h, dh)), torch.float32)
-            k = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
-            v = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
-        with tf32(False):
-            want = attention_ref(q, k, v, causal=causal, window=win)
-        check_close(errs, "flash_attention",
-                    flash_attention(q, k, v, causal=causal, window=win),
-                    want, 2e-4, f"{(b, sq, sk, h, kv, dh, causal, win)}")
-    print(f"[kernels2] flash_attention within 2e-4 of plain on "
-          f"{len(ashapes)} shapes")
+               (1, 300, 130, 1, 1, 8, True, 4),
+               (1, 130, 130, 2, 1, 100, True, 0),
+               (1, 65, 200, 3, 1, 6, True, 0),
+               (1, 65, 200, 3, 3, 5, False, 0),
+               (1, 65, 200, 2, 1, 7, True, 9),
+               (1, 65, 200, 2, 1, 12, True, 0)]
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for (b, sq, sk, h, kv, dh, causal, win) in ashapes:
+            if sq == 1024:
+                q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
+            else:
+                q = t(rng.normal(size=(b, sq, h, dh)), torch.float32)
+                k = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
+                v = t(rng.normal(size=(b, sk, kv, dh)), torch.float32)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            with tf32(False):
+                want = attention_ref(q, k, v, causal=causal, window=win)
+            name = ("flash_attention" if dtype == torch.float32
+                    else "flash_attention bf16")
+            check_close(errs, name,
+                        flash_attention(q, k, v, causal=causal, window=win),
+                        want, tol, f"{(b, sq, sk, h, kv, dh, causal, win)}")
+        print(f"[kernels2] flash_attention {dtype} within {tol} of plain on "
+              f"{len(ashapes)} shapes (dh templates 16/32/64/128, every "
+              f"copy width; max abs err "
+              f"{errs['flash_attention' if tol == 2e-4 else 'flash_attention bf16']:.3g})")
     return inp
 
 
@@ -709,6 +874,8 @@ def phase_bench(torch):
             f"bench: a row is not a positive time: {rows}")
     print(f"[bench] {len(rows)} rows in {time.perf_counter() - t0:.1f}s; "
           f"launches {counts}")
+    print("[bench] us per call: " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in rows.items()))
     return counts
 
 
@@ -815,16 +982,22 @@ def phase_timing2(torch, inp, counts, errs, card):
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     pairs = b * h * sum(min(i + 1, sk) for i in range(sq))     # causal
-    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    except TypeError:                 # torch without enable_gqa
-        ke, ve = (t_.repeat_interleave(h // kvh, dim=1) for t_ in (kt, vt))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, ke, ve, is_causal=True)
+    flops = 4 * dh * pairs
+
+    def sdpa_of(q, k, v):
+        qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+            return lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        except TypeError:             # torch without enable_gqa
+            ke, ve = (t_.repeat_interleave(h // kvh, dim=1)
+                      for t_ in (kt, vt))
+            return lambda: F.scaled_dot_product_attention(
+                qt, ke, ve, is_causal=True)
+
+    sdpa = sdpa_of(q, k, v)
     lib_fns["flash_attention SDPA"] = (sdpa, False)
     with tf32(False):
         check_close({}, "flash_attention", sdpa().transpose(1, 2),
@@ -832,31 +1005,37 @@ def phase_timing2(torch, inp, counts, errs, card):
                     "against the library call")
         row("flash_attention", lambda: flash_attention(q, k, v),
             lambda: attention_ref(q, k, v), time_ms(sdpa),
-            nbytes(q, k, v) + 4 * q.numel(), 4 * dh * pairs, F32_OPS_PER_S)
+            nbytes(q, k, v) + 4 * q.numel(), flops, F32_OPS_PER_S)
+    print(f"[timing2] flash_attention float32 as three TF32 passes: bound "
+          f"{bound(nbytes(q, k, v) + 4 * q.numel(), 3 * flops, TF32_OPS_PER_S)[0]:.7f}"
+          f" ms ({3 * flops} TF32 operations at 495 T/s) on {card}")
 
-    # device time per launch: one profiler session over 10 calls of each
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for fn in fns.values():
-            for _ in range(10):
-                fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    for name in fns:
-        mine = [e for e in events if f"{name}_kernel" in e.key]
-        n = sum(e.count for e in mine)
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in mine)
-        print(f"[timing2] {name}_kernel device time "
-              + (f"{us / n:.2f} us per launch ({n} launches)" if n else
-                 "not seen by the profiler (device events: "
-                 + ", ".join(sorted({e.key[:60] for e in events})) + ")")
-              + f" on {card}")
+    # the bfloat16 row at the same shape: not on the bench path, so its
+    # numbers are printed here and not in the kernels line
+    qb, kb, vb = (t_.to(torch.bfloat16) for t_ in (q, k, v))
+    sdpa_bf16 = sdpa_of(qb, kb, vb)
+    lib_fns["flash_attention bf16 SDPA"] = (sdpa_bf16, False)
+    got_bf16 = flash_attention(qb, kb, vb)
+    check_close({}, "flash_attention bf16", sdpa_bf16().transpose(1, 2),
+                got_bf16, 2e-2, "against the library call")
+    bf16_fn = lambda: flash_attention(qb, kb, vb)  # noqa: E731
+    ms = time_ms(bf16_fn)
+    plain_ms = time_ms(lambda: attention_ref(qb, kb, vb), iters=3, reps=3)
+    lib_ms = time_ms(sdpa_bf16)
+    n_bytes = nbytes(qb, kb, vb, got_bf16)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    print(f"[timing2] flash_attention bf16: {ms:.5f} ms (plain "
+          f"{plain_ms:.5f} ms; library {lib_ms:.5f} ms; bound {b_ms:.7f} ms "
+          f"by {b_by}: {n_bytes} bytes, {flops} bf16 operations at 989 T/s; "
+          f"max abs err {errs.get('flash_attention bf16', 0.0):.3g}) on "
+          f"{card}")
+
+    # device time per launch, one profiler session per kernel
+    for name, fn in [*fns.items(), ("flash_attention bf16", bf16_fn)]:
+        dev, n = device_us(fn, name.split()[0] + "_kernel", 10)
+        print(f"[timing2] {name} kernel device time "
+              + (f"{dev:.2f} us per launch ({n} launches)" if n else
+                 "not seen by the profiler") + f" on {card}")
     # the library calls' device time: every device event of 10 calls
     for label, (fn, on) in lib_fns.items():
         with tf32(on):

@@ -34,12 +34,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lut_eval_launch": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    "lut_eval_streamed_launch": [_P] * 6 + [_I] * 8 + [_P],
+    "lut_eval_streamed_launch": [_P] * 6 + [_I] * 10 + [_P],
     "lut_layer_launch": [_P] * 4 + [_I] * 6 + [_P],
     "aig_sim_launch": [_P] * 4 + [_I] * 3 + [_P],
     "xnor_popcount_launch": [_P] * 3 + [_I] * 4 + [_P],
     "fanin_matmul_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
+    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

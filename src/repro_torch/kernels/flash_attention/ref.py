@@ -5,6 +5,11 @@ flattened ``(BH, S, dh)`` layout; ``attention_ref`` runs it on the
 kernel's ``(B, S, H, dh)`` layout, each query head reading its KV head
 ``h // (H // KV)``. A row whose every key is masked gets the mean of v
 (the softmax of all-equal -1e30 scores).
+
+Both take float32 or bfloat16 operands and round where the reference
+kernel rounds: scores in float32 from the operands, the softmax in
+float32, P rounded to v's type before P.V, which sums in float32, and
+the output returned in q's type.
 """
 from __future__ import annotations
 
@@ -17,10 +22,10 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (BH, Sq, dh); k, v (BH, Sk, dh) -> (BH, Sq, dh) float32."""
+    """q (BH, Sq, dh); k, v (BH, Sk, dh) -> (BH, Sq, dh) in q's type."""
     sq, sk = q.shape[1], k.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     qpos = torch.arange(sq, device=q.device)
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -30,7 +35,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos[None, :] > qpos[:, None] - window
     s = torch.where(mask[None], s, torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,6 +9,7 @@ counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,80 @@ def plan_block(n_rows: int, w: int,
     if fit >= 1:
         return min(bw, fit), True
     return bw, False
+
+
+def _align4(words: int) -> int:
+    return (words + 3) & ~3
+
+
+def tt_stride(k: int) -> int:
+    """Words between two slots' INIT rows in the streamed walk's shared
+    memory (2^k plus a 16-byte pad that spreads neighbouring rows over
+    the banks)."""
+    return 4 if k == 1 else (1 << k) + 4
+
+
+def streamed_smem_bytes(n_levels: int, n_tiles: int, T: int, k: int,
+                        chunk: int, n_rows: int, bw: int,
+                        use_smem: bool) -> int:
+    """Shared memory of one block of the streamed walk (the kernel's
+    ``StreamLayout``): level_start and out_base, the plan area (the
+    whole plan when ``chunk >= n_tiles``, else two regions of ``chunk``
+    tiles; INIT rows ``tt_stride(k)`` words apart) and, if ``use_smem``,
+    the block's ``n_rows x bw`` plane; each part 16-byte aligned."""
+    regions, tiles = (1, n_tiles) if chunk >= n_tiles else (2, chunk)
+    words = (_align4(n_levels + 1 + n_tiles)
+             + regions * tiles * T * tt_stride(k)
+             + _align4(regions * tiles * T * k)
+             + (n_rows * bw if use_smem else 0))
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=256)
+def plan_streamed(n_rows: int, w: int, n_levels: int, n_tiles: int, T: int,
+                  k: int, spec: KernelSpec = DEFAULT_SPEC
+                  ) -> Tuple[int, bool, int]:
+    """(word tile, plane in shared memory?, chunk) of the streamed walk.
+
+    The whole plan is staged in shared memory (``chunk = n_tiles``) when
+    it fits beside at least one column of the plane; the word tile is
+    then narrowed to what is left. Otherwise the plan streams through two
+    regions that take at most half the budget (``chunk`` tiles each) and
+    the plane gets the rest. If not one column of the plane fits beside
+    the plan, the plane stays in device memory and the plan takes what
+    fits of the budget."""
+    budget = spec.tile.smem_budget_bytes
+    bw0 = spec.tile.clamp_block_w(w)
+    col = 4 * n_rows                     # one word column of the plane
+
+    def size(chunk):                     # the plan area and the meta
+        return streamed_smem_bytes(n_levels, n_tiles, T, k, chunk, 0, 0,
+                                   False)
+
+    def largest_chunk(limit):
+        """The most tiles two regions can hold within ``limit`` bytes
+        (at least 1)."""
+        per_tile = 8 * T * (tt_stride(k) + k)
+        chunk = max(1, min(n_tiles, (limit - size(0)) // per_tile))
+        while chunk > 1 and size(chunk) > limit:
+            chunk -= 1
+        while chunk < n_tiles and size(chunk + 1) <= limit:
+            chunk += 1
+        return chunk
+
+    staged = max(1, n_tiles)
+    if size(staged) + col <= budget:
+        return min(bw0, (budget - size(staged)) // col), True, staged
+    chunk = largest_chunk(budget // 2)
+    if size(chunk) + col <= budget:
+        return min(bw0, (budget - size(chunk)) // col), True, chunk
+    if size(staged) <= budget:
+        return bw0, False, staged
+    chunk = largest_chunk(budget)
+    if size(chunk) > budget:
+        raise ValueError(f"a tile of {T} slots at k={k} does not fit "
+                         f"{budget} bytes of shared memory")
+    return bw0, False, chunk
 
 
 def level_starts(level_of_tile: np.ndarray) -> np.ndarray:
@@ -81,6 +156,10 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     check_int32("plane", out, dev, 2)
     if w == 0:
         return out
+    if tt_bits.data_ptr() % min(16, 4 << k):
+        raise ValueError("tt_bits: the kernel reads each slot's INIT masks "
+                         f"as {min(16, 4 << k)}-byte vectors; its data is "
+                         "not aligned to that")
     bw, use_smem = plan_block(n_wires + 1, w, spec or DEFAULT_SPEC)
     err = build.library().lut_eval_launch(
         pi_words.data_ptr(), leaf_idx.data_ptr(), tt_bits.data_ptr(),
@@ -106,7 +185,7 @@ def lut_eval_streamed(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
     (n_tiles, T, k); out_base (n_tiles,); level_start (n_levels + 1,)
     (``level_starts(tplan.level_of_tile)``); all int32 and contiguous
     on one device. The tile geometry T is the plan's;
-    ``spec.tile.block_w`` sets the word tile."""
+    ``spec.tile.block_w`` bounds the word tile (``plan_streamed``)."""
     dev = pi_words.device
     check_int32("pi_words", pi_words, dev, 2)
     check_int32("tt_tiles", tt_tiles, dev, 3)
@@ -133,12 +212,15 @@ def lut_eval_streamed(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
     check_int32("plane", out, dev, 2)
     if w == 0:
         return out
-    bw, use_smem = plan_block(n_rows, w, spec or DEFAULT_SPEC)
+    n_levels = level_start.numel() - 1
+    kk = k if n_tiles else 1
+    bw, use_smem, chunk = plan_streamed(n_rows, w, n_levels, n_tiles, T, kk,
+                                        spec or DEFAULT_SPEC)
     err = build.library().lut_eval_streamed_launch(
         pi_words.data_ptr(), tt_tiles.data_ptr(), leaf_tiles.data_ptr(),
         out_base.data_ptr(), level_start.data_ptr(), out.data_ptr(), n_pis,
-        n_rows, level_start.numel() - 1, T, k if n_tiles else 1, w, bw,
-        int(use_smem), stream_of(dev))
+        n_rows, n_levels, n_tiles, T, kk, w, bw, int(use_smem), chunk,
+        stream_of(dev))
     build.check(err, "lut_eval_streamed")
     lut_eval_streamed.launches += 1
     return out

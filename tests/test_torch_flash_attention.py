@@ -1,8 +1,8 @@
 """repro_torch.kernels.flash_attention against
 repro.kernels.flash_attention (the Pallas kernel in interpret mode) on
 the same numpy inputs, at the reference test's tolerance
-(rtol = atol = 2e-4): causal, sliding window, grouped-query heads and
-ragged sequence lengths."""
+(rtol = atol = 2e-4 in float32, 2e-2 in bfloat16): causal, sliding
+window, grouped-query heads and ragged sequence lengths."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +85,28 @@ def test_attention_ref_repeats_kv_heads():
     np.testing.assert_array_equal(got.numpy(), full.numpy())
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (1, 64, 64, 2, 2, 32, True, 0),       # the reference's test_flash_bf16
+    (2, 64, 64, 4, 2, 16, True, 0),       # GQA
+    (2, 100, 77, 4, 1, 32, True, 24),     # window + ragged S
+])
+def test_flash_attention_bf16_matches_reference_kernel(b, sq, sk, h, kv, dh,
+                                                       causal, win):
+    """bfloat16 operands: scores and softmax in float32, P rounded to
+    bfloat16 before P.V, the output in bfloat16, as the reference kernel
+    computes them; held at the reference's bf16 tolerance."""
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in _qkv(b, sq, sk, h, kv, dh, seed=sq))
+    want = np.asarray(ref_flash(q, k, v, causal=causal, window=win),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32))
+                  .to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal, window=win)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_wrapper_rejects_bad_operands():
     q = torch.zeros((1, 4, 3, 8))
     k = torch.zeros((1, 4, 2, 8))
@@ -92,6 +114,12 @@ def test_wrapper_rejects_bad_operands():
         flash_attention(q, k, k)                    # 3 heads over 2
     with pytest.raises(ValueError):
         flash_attention(q.double(), q, q)
+    qk = torch.zeros((1, 4, 2, 8))
+    for dtypes in ((torch.bfloat16, torch.float32, torch.float32),
+                   (torch.float32, torch.float32, torch.bfloat16),
+                   (torch.float16,) * 3):
+        with pytest.raises(ValueError):
+            flash_attention(*(qk.to(d) for d in dtypes))
     with pytest.raises(ValueError):
         flash_attention(torch.zeros((1, 4, 2, 130)),
                         torch.zeros((1, 4, 2, 130)),

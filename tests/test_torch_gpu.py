@@ -16,7 +16,11 @@ from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval, lut_eval_ref,
                                           lut_eval_streamed,
-                                          lut_eval_streamed_ref)
+                                          lut_eval_streamed_ref,
+                                          plan_streamed)
+from repro_torch.kernels.lut_eval.ops import streamed_smem_bytes, tt_stride
+from repro_torch.kernels.spec import DEFAULT_SPEC
+from repro_torch.synth.executor import _compile_plan
 from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
 from repro_torch.kernels.xnor_popcount import (pack_bipolar,
                                                xnor_matmul_packed,
@@ -71,6 +75,79 @@ def test_lut_eval_kernels_match_plain(cuda_device, mapped, n_words,
     assert lut_eval_streamed.launches == launches + 1
     assert torch.equal(got, lut_eval_streamed_ref(words, *targs,
                                                   n_rows=tp.n_rows))
+
+
+def random_netlist(seed, k, n_pis=20, n_levels=4, width=70):
+    """A random mapped k-LUT netlist of exactly ``n_levels`` levels of
+    ``width`` LUTs, 1 to k leaves each (one from the level below), with
+    random INIT vectors."""
+    rng = np.random.default_rng(seed)
+    below = list(range(1, n_pis + 1))
+    earlier = [0] + below
+    luts, node = [], n_pis + 1
+    for _ in range(n_levels):
+        level = []
+        for _ in range(width):
+            m = int(rng.integers(1, k + 1))
+            leaves = [int(rng.choice(below))]
+            leaves += [int(x) for x in rng.choice(earlier, m - 1)]
+            tt = (int.from_bytes(rng.bytes(8), "little")
+                  & ((1 << (1 << m)) - 1))
+            luts.append(synth.MappedLUT(node, tuple(leaves), tt))
+            level.append(node)
+            node += 1
+        earlier += level
+        below = level
+    return synth.MappedNetwork(n_pis, k, luts,
+                               [2 * x for x in below[:8]])
+
+
+def plan_budget(mode, n_levels, n_tiles, T, k):
+    """A shared-memory budget that puts the streamed walk on one branch:
+    the default ("staged": the whole plan beside the plane), ten tiles
+    ("streamed": two regions of two tiles, the plane beside them), or
+    two one-tile regions and nothing more ("device": the plane in device
+    memory)."""
+    if mode == "staged":
+        return DEFAULT_SPEC
+    if mode == "streamed":
+        budget = 10 * 4 * T * (tt_stride(k) + k) + 512
+    else:
+        budget = streamed_smem_bytes(n_levels, n_tiles, T, k, 1, 0, 0,
+                                     False) + 64
+    return DEFAULT_SPEC.with_tile(smem_budget_bytes=budget)
+
+
+@pytest.mark.parametrize("mode", ["staged", "streamed", "device"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+def test_lut_eval_plan_branches_match_plain(cuda_device, k, mode):
+    """Every fold width through both walks, and the streamed walk on each
+    of its branches (``plan_budget``)."""
+    mapped = random_netlist(k, k)
+    plan = _compile_plan(mapped)
+    dp = synth.compile_device_plan(mapped, plan)
+    tp = synth.compile_tile_plan(plan, mapped.n_pis, k, 8)
+    ls = level_starts(tp.level_of_tile)
+    n_levels, n_tiles = ls.shape[0] - 1, tp.out_base.shape[0]
+    spec = plan_budget(mode, n_levels, n_tiles, 8, k)
+    for n_words in (1, 7, 40):
+        words = _i32(synth.random_words(mapped.n_pis, n_words, seed=k),
+                     cuda_device)
+        _, smem, chunk = plan_streamed(tp.n_rows, n_words, n_levels,
+                                       n_tiles, 8, k, spec)
+        assert (chunk >= n_tiles, smem) == (mode == "staged",
+                                            mode != "device")
+        assert mode == "staged" or chunk < int(np.diff(ls).max())
+        targs = [_i32(a, cuda_device) for a in (
+            tp.tt_tiles, tp.leaf_tiles, tp.out_base, ls)]
+        got = lut_eval_streamed(words, *targs, n_rows=tp.n_rows, spec=spec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lut_eval_streamed_ref(words, *targs,
+                                                      n_rows=tp.n_rows))
+        args = [_i32(a, cuda_device) for a in (dp.leaf_idx, dp.tt_bits,
+                                               dp.out_wires)]
+        assert torch.equal(lut_eval(words, *args, n_wires=dp.n_wires),
+                           lut_eval_ref(words, *args, n_wires=dp.n_wires))
 
 
 @pytest.mark.parametrize("B,n_in,N,K,L", [
@@ -199,20 +276,45 @@ def test_fanin_kernel_refuses_k_beyond_its_staging(cuda_device):
     assert torch.equal(got, torch.zeros((4, 8), device=cuda_device))
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
-    (1, 1024, 1024, 4, 2, 64, True, 0), (2, 100, 77, 4, 1, 32, True, 24)])
+FLASH_SHAPES = [
+    (1, 1024, 1024, 4, 2, 64, True, 0),   # the bench shape
+    (2, 100, 77, 4, 1, 32, True, 24),     # window, ragged S
+    (1, 200, 300, 2, 2, 8, False, 0),     # dh 8 -> the 16 template
+    (1, 130, 130, 2, 1, 100, True, 0),    # dh 100 -> 128, ragged dh
+    (1, 70, 90, 2, 1, 128, False, 40),    # dh 128, window only
+    (1, 300, 130, 1, 1, 8, True, 4),      # fully masked rows
+    (1, 65, 200, 3, 1, 6, True, 0),       # 8-byte copies (f32, bf16 4)
+    (1, 65, 200, 3, 3, 5, False, 0),      # 4-byte copies (bf16 2)
+    (1, 65, 200, 2, 1, 7, True, 9),       # odd dh
+    (1, 65, 200, 2, 1, 12, True, 0),      # bf16 8-byte copies
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
-                                    causal, win):
-    rng = np.random.default_rng(sq)
+                                    causal, win, dtype, tol):
+    """Every dh template, copy width and mask, in float32 (three TF32
+    passes, held at 2e-4 against the plain version in full float32) and
+    bfloat16 (held at the reference's 2e-2); every block merges its four
+    warps' key slices."""
+    rng = np.random.default_rng(sq + dh)
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
-               .to(cuda_device) for s in ((b, sq, h, dh), (b, sk, kv, dh),
-                                          (b, sk, kv, dh)))
+               .to(cuda_device, dtype) for s in (
+                   (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
     launches = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
-    want = attention_ref(q, k, v, causal=causal, window=win)
-    assert (got - want).abs().max().item() <= 2e-4
+    assert got.dtype == dtype and got.shape == q.shape
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = attention_ref(q, k, v, causal=causal, window=win)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 def test_entry_points_without_a_card_raise():

@@ -17,7 +17,8 @@ from repro.kernels.lut_eval import lut_eval_streamed as ref_lut_eval_streamed
 from repro.synth.executor import _compile_plan as ref_compile_plan
 from repro_torch import synth
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval,
-                                          lut_eval_streamed, plan_block)
+                                          lut_eval_streamed, plan_block,
+                                          plan_streamed, streamed_smem_bytes)
 from repro_torch.kernels.spec import DEFAULT_SPEC
 from repro_torch.synth.executor import _compile_plan
 from repro_torch.synth.from_sop import table_to_aig
@@ -168,6 +169,57 @@ def test_level_starts_and_block_plan():
         smem_budget_bytes=3 * 180 * 4)) == (3, True)
     assert plan_block(180, 130, DEFAULT_SPEC.with_tile(block_w=16)) == \
         (16, True)
+
+
+def test_streamed_plan_layout():
+    """The streamed walk's shared memory, as the kernel's StreamLayout
+    lays it out: level_start + out_base, the plan area, the plane, each
+    part rounded up to 16 bytes."""
+    # JSC-S served batch: 5 levels, 7 tiles of 32 slots at k = 6, W = 8
+    meta, tt, leaf = 4 * 16, 7 * 32 * (64 + 4) * 4, 7 * 32 * 6 * 4
+    assert streamed_smem_bytes(5, 7, 32, 6, 7, 257, 8, True) == \
+        meta + tt + leaf + 257 * 8 * 4
+    assert streamed_smem_bytes(5, 7, 32, 6, 99, 257, 8, False) == \
+        meta + tt + leaf                 # chunk >= n_tiles: staged whole
+    # streamed: two regions of `chunk` tiles; INIT rows 16 bytes apart
+    # at k = 1, leaf rows rounded up to 16 bytes
+    assert streamed_smem_bytes(2, 9, 3, 1, 1, 40, 1, True) == \
+        4 * (12 + 24 + 8 + 40)
+
+
+@pytest.mark.parametrize("n_rows,w,n_levels,n_tiles,T,k,want", [
+    (257, 8, 5, 7, 32, 6, (8, True, 7)),       # JSC-S served: staged
+    (300, 256, 30, 40, 32, 2, (32, True, 40)),  # an AIG as k=2 LUTs
+    (10, 1, 0, 0, 32, 1, (1, True, 1)),        # no LUTs at all
+])
+def test_streamed_plan_stages_what_fits(n_rows, w, n_levels, n_tiles, T, k,
+                                        want):
+    assert plan_streamed(n_rows, w, n_levels, n_tiles, T, k) == want
+
+
+def test_streamed_plan_streams_what_does_not_fit():
+    budget = DEFAULT_SPEC.tile.smem_budget_bytes
+    # the ~2,000-LUT, depth-12 netlist: 72 tiles (682 KB) at k = 6 stream
+    # one level (6 tiles) at a time in half the budget; the plane takes
+    # the rest
+    bw, smem, chunk = plan_streamed(2369, 130, 12, 72, 32, 6)
+    assert (smem, chunk) == (True, 6)
+    used = streamed_smem_bytes(12, 72, 32, 6, chunk, 2369, bw, True)
+    assert used <= budget < used + 2369 * 4
+    assert streamed_smem_bytes(12, 72, 32, 6, chunk + 1, 0, 0, False) > \
+        budget // 2
+    # a plane too tall for one column beside the plan: device memory,
+    # and the plan takes the whole budget
+    bw, smem, chunk = plan_streamed(100_000, 4, 12, 72, 32, 6)
+    assert (bw, smem) == (4, False) and 6 < chunk < 72
+    assert streamed_smem_bytes(12, 72, 32, 6, chunk, 0, 0, False) <= \
+        budget < streamed_smem_bytes(12, 72, 32, 6, chunk + 1, 0, 0, False)
+    # a small budget cuts a level into one-tile chunks
+    tight = DEFAULT_SPEC.with_tile(smem_budget_bytes=40_000)
+    assert plan_streamed(2369, 7, 12, 72, 32, 6, tight) == (2, True, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        plan_streamed(50, 1, 1, 1, 32, 6,
+                      DEFAULT_SPEC.with_tile(smem_budget_bytes=5_000))
 
 
 def test_wrapper_rejects_bad_arguments():
