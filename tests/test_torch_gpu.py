@@ -150,6 +150,22 @@ def test_lut_eval_plan_branches_match_plain(cuda_device, k, mode):
                            lut_eval_ref(words, *args, n_wires=dp.n_wires))
 
 
+def test_lut_eval_refuses_misaligned_masks(cuda_device, mapped):
+    """The monolithic walk reads each slot's INIT masks as 16-byte
+    vectors; masks at an address off that alignment are refused."""
+    dp = synth.compile_device_plan(mapped)
+    words = _i32(synth.random_words(mapped.n_pis, 3, seed=1), cuda_device)
+    leaf, tt, ow = (_i32(a, cuda_device) for a in (dp.leaf_idx, dp.tt_bits,
+                                                   dp.out_wires))
+    shifted = torch.empty(tt.numel() + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(tt.shape)
+    shifted.copy_(tt)
+    with pytest.raises(ValueError, match="aligned"):
+        lut_eval(words, leaf, shifted, ow, n_wires=dp.n_wires)
+    assert torch.equal(lut_eval(words, leaf, tt, ow, n_wires=dp.n_wires),
+                       lut_eval_ref(words, leaf, tt, ow, n_wires=dp.n_wires))
+
+
 @pytest.mark.parametrize("B,n_in,N,K,L", [
     (8, 16, 32, 3, 2), (130, 20, 50, 4, 2), (64, 64, 128, 6, 2),
     (33, 10, 7, 2, 4), (16, 24, 200, 5, 3), (256, 64, 32, 3, 3),
