@@ -7,16 +7,19 @@ Phases, each printing its own lines:
   1. card     — ``nvidia-smi`` name and power limit, torch's device name;
   2. build    — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for
                 sm_90a (seconds, and each kernel's registers and stack
-                frame); both lut_eval kernels must have none;
+                frame); no lut_eval walk may keep a stack;
   3. kernels  — every kernel against its plain torch version on the
                 card, bit for bit (``torch.equal``): lut_layer on JSC-S
-                layer shapes and a ragged sweep, both lut_eval kernels
-                on random mapped netlists (W in {1, 7, 130}, tile_rows in
+                layer shapes and a ragged sweep that reaches each of its
+                branches (whole tiles in shared memory, fewer neurons a
+                block for large tables, device memory for a table or a
+                row of codes over the budget), both lut_eval walks on
+                random mapped netlists (W in {1, 7, 130}, tile_rows in
                 {8, 32}, the constant network, and a ~2,000-LUT,
-                depth-12 netlist whose plan streams through shared
+                depth-12 netlist whose plans stream through shared
                 memory one level at a time), and on random k-LUT
-                netlists for k = 1..6 with the streamed plan staged whole,
-                streamed in chunks of fewer tiles than a level, and
+                netlists for k = 1..6 with each walk's plan staged
+                whole, streamed in chunks of less than a level, and
                 streamed with the plane in device memory;
   4. serve    — the port's main path: a seeded full-width JSC-S is
                 compiled to truth tables and a mapped 6-LUT netlist and
@@ -30,7 +33,9 @@ Phases, each printing its own lines:
                 CPU's;
   5. timing   — each kernel at the shapes the served batch gave it,
                 held bit for bit against its plain version on those
-                inputs, then timed beside it and its bound;
+                inputs, then timed beside it, its bound and the launch
+                floor (the profiler's device time of a one-element
+                ``zero_`` on the card);
   6. profile  — one served batch per engine split into the stages of
                 ``LogicEngine.stages`` (host clock) and the device's busy
                 share (``torch.profiler``);
@@ -136,10 +141,11 @@ def time_ms(fn, iters: int = 200, reps: int = 7) -> float:
     return statistics.median(samples)
 
 
-def device_us(fn, kernel: str, n: int = 20):
+def device_us(fn, kernel, n: int = 20):
     """The profiler's device time per launch of ``kernel`` (a substring of
-    the kernel symbol) over ``n`` back-to-back calls of ``fn``, and the
-    launches seen; (None, 0) when the profiler saw none."""
+    the kernel symbol; None: every kernel) over ``n`` back-to-back calls
+    of ``fn``, and the launches seen; (None, 0) when the profiler saw
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -151,7 +157,7 @@ def device_us(fn, kernel: str, n: int = 20):
         torch.cuda.synchronize()
     mine = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
+            and (kernel is None or kernel in e.key)]
     launches = sum(e.count for e in mine)
     us = sum(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) for e in mine)
@@ -353,12 +359,16 @@ def phase_build():
     for name, regs, stack in report:
         print(f"[build]   {name}: {regs}; {stack}")
     lut = [(n, st) for n, _, st in report if "lut_eval" in n]
-    require(len(lut) == 18, f"ptxas reported {len(lut)} lut_eval kernels, "
-            "expected 18 (k = 1..6: the monolithic walk, the streamed walk "
-            "with the plane in shared and in device memory)")
+    require(len(lut) == 24, f"ptxas reported {len(lut)} lut_eval kernels, "
+            "expected 24 (k = 1..6: the monolithic and the streamed walk, "
+            "each with the plane in shared and in device memory)")
     for name, stack in lut:
         require(stack.startswith("0 bytes stack frame"),
                 f"{name} keeps a stack frame: {stack}")
+    layer = [n for n, _, _ in report if "lut_layer" in n]
+    require(len(layer) == 14, f"ptxas reported {len(layer)} lut_layer "
+            "kernels, expected 14 (K = 1..6 and any K, each staged in "
+            "shared memory and reading device memory)")
     print("[build] every lut_eval walk, k = 1..6: 0 bytes of stack")
 
 
@@ -368,18 +378,31 @@ def phase_kernels(torch, errs):
     from repro_torch.kernels.lut_eval import (level_starts, lut_eval,
                                               lut_eval_ref, lut_eval_streamed,
                                               lut_eval_streamed_ref,
-                                              plan_streamed)
+                                              plan_stacked, plan_streamed,
+                                              stacked_smem_bytes)
     from repro_torch.kernels.lut_eval.ops import streamed_smem_bytes, tt_stride
-    from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+    from repro_torch.kernels.lut_layer import (lut_layer, lut_layer_ref,
+                                               plan_layer)
     from repro_torch.kernels.spec import DEFAULT_SPEC
     from repro_torch.synth.executor import _compile_plan
     dev = torch.device("cuda")
 
-    # lut_layer: JSC-S layer shapes at the serving batch, then a sweep
+    # lut_layer: JSC-S layer shapes at the serving batch, a sweep, JSC-L's
+    # first layer (R 2,401) and R 4,096 (tiles of fewer neurons), then a
+    # table (R 117,649) and a row of 60,000 codes over the budget (device
+    # memory)
     shapes = [(256, 16, 64, 3, 3), (256, 64, 32, 3, 3), (256, 32, 5, 3, 3),
               (8, 16, 32, 3, 2), (130, 20, 50, 4, 2), (64, 64, 128, 6, 2),
-              (33, 10, 7, 2, 4), (16, 24, 200, 5, 3), (70, 30, 9, 6, 3)]
+              (33, 10, 7, 2, 4), (16, 24, 200, 5, 3), (70, 30, 9, 6, 3),
+              (256, 16, 32, 4, 7), (40, 12, 20, 4, 8), (33, 10, 3, 6, 7),
+              (5, 60_000, 7, 3, 3)]
+    branches = {}
     for (B, n_in, N, K, L) in shapes:
+        n_tile, b_tile, smem = plan_layer(B, n_in, N, K, L ** K)
+        branch = ("device" if not smem else
+                  "split" if n_tile < min(N, 32) else "smem")
+        branches.setdefault(branch, []).append(
+            f"{(B, n_in, N, K, L)} tile {n_tile}x{b_tile}")
         g = torch.Generator(device="cpu").manual_seed(B * 7 + N)
         codes = torch.randint(0, L, (B, n_in), generator=g,
                               dtype=torch.int32).to(dev)
@@ -394,7 +417,10 @@ def phase_kernels(torch, errs):
             plain = time_ms(lambda: lut_layer_ref(codes, idx, tables, L))
             print(f"[kernels] lut_layer {(B, n_in, N, K, L)}: {ms:.5f} ms, "
                   f"plain {plain:.5f} ms")
-    print(f"[kernels] lut_layer == plain on {len(shapes)} shapes")
+    require(set(branches) == {"smem", "split", "device"},
+            f"lut_layer branches reached: {sorted(branches)}")
+    print(f"[kernels] lut_layer == plain on {len(shapes)} shapes; branches "
+          + "; ".join(f"{b}: {', '.join(v)}" for b, v in branches.items()))
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
@@ -433,6 +459,16 @@ def phase_kernels(torch, errs):
                       lut_eval_streamed_ref(pw, *targs, n_rows=tp.n_rows),
                       f"{label} W={n_words} T={tile_rows}")
             if label.startswith("wide"):
+                n_levels, lw = dp.out_wires.shape
+                bw, smem, chunk = plan_stacked(dp.n_wires + 1, n_words,
+                                               n_levels, lw, mapped.k)
+                require(chunk == lw < n_levels * lw and smem,
+                        f"{label}: the stacked plan's chunk is {chunk} slots "
+                        f"of {n_levels} x {lw}, plane in shared memory "
+                        f"{smem}; expected level by level beside the plane")
+                print(f"[kernels] {label} W={n_words}: stacked plan streamed "
+                      f"level by level ({lw} slots), bw {bw}, plane in "
+                      "shared memory")
                 n_tiles = tp.out_base.shape[0]
                 bw, smem, chunk = plan_streamed(
                     tp.n_rows, n_words, int(tp.level_of_tile.max()) + 1,
@@ -454,10 +490,11 @@ def phase_kernels(torch, errs):
               f"T in 8/32")
     print(f"[kernels] host synthesis of the test netlists {host_s:.1f}s")
 
-    # the streamed walk's branches at every fold width: the plan staged
-    # whole beside the plane (the default budget), streamed in chunks of
-    # fewer tiles than a level beside the plane (a budget of ten tiles),
-    # and streamed with the plane in device memory (two one-tile regions)
+    # each walk's branches at every fold width: the plan staged whole
+    # beside the plane (the default budget), streamed in chunks of less
+    # than a level beside the plane (a budget of ten tiles; of two
+    # ten-slot regions and a plane column in each half), and streamed
+    # with the plane in device memory (two one-tile / one-slot regions)
     for k in range(1, 7):
         mapped = wide_random_netlist(k, n_pis=20, n_levels=4, width=70, k=k,
                                      min_leaves=1)
@@ -470,18 +507,45 @@ def phase_kernels(torch, errs):
         args = [i32(a) for a in (dp.leaf_idx, dp.tt_bits, dp.out_wires)]
         n_levels, n_tiles = ls.shape[0] - 1, tp.out_base.shape[0]
         widest = int(np.diff(ls).max())
+        lw = dp.out_wires.shape[1]
+        n_rows = dp.n_wires + 1
+        stacked = {
+            "staged": DEFAULT_SPEC,
+            "streamed": DEFAULT_SPEC.with_tile(smem_budget_bytes=2 * (
+                stacked_smem_bytes(n_levels, lw, k, 10, 0, 0, False)
+                + 4 * n_rows)),
+            "device": DEFAULT_SPEC.with_tile(smem_budget_bytes=64 +
+                stacked_smem_bytes(n_levels, lw, k, 1, 0, 0, False))}
         budgets = {
             "staged": DEFAULT_SPEC,
             "streamed": DEFAULT_SPEC.with_tile(
                 smem_budget_bytes=10 * 4 * 8 * (tt_stride(k) + k) + 512),
             "device": DEFAULT_SPEC.with_tile(smem_budget_bytes=64 +
                 streamed_smem_bytes(n_levels, n_tiles, 8, k, 1, 0, 0, False))}
-        seen = []
+        seen, seen_mono = [], []
         for n_words in (1, 7, 40):
-            pw = i32(synth.random_words(mapped.n_pis, n_words, seed=k))
-            check(errs, "lut_eval", lut_eval(pw, *args, n_wires=dp.n_wires),
-                  lut_eval_ref(pw, *args, n_wires=dp.n_wires),
-                  f"k={k} W={n_words}")
+            words = synth.random_words(mapped.n_pis, n_words, seed=k)
+            pw = i32(words)
+            host = synth.execute_packed(mapped, words, plan=plan)
+            for mode, spec in stacked.items():
+                bw, smem, chunk = plan_stacked(n_rows, n_words, n_levels, lw,
+                                               k, spec)
+                require((chunk >= n_levels * lw, smem) == (mode == "staged",
+                                                           mode != "device")
+                        and (mode == "staged" or chunk < lw),
+                        f"k={k} W={n_words} stacked {mode}: chunk {chunk} "
+                        f"of {n_levels} x {lw} slots, plane in shared "
+                        f"memory {smem}")
+                plane = lut_eval(pw, *args, n_wires=dp.n_wires, spec=spec)
+                check(errs, "lut_eval", plane,
+                      lut_eval_ref(pw, *args, n_wires=dp.n_wires),
+                      f"k={k} W={n_words} {mode}")
+                out = plane.cpu().numpy().view(np.uint32)[dp.out_idx]
+                out[dp.out_neg] = ~out[dp.out_neg]
+                require(np.array_equal(out, host), f"lut_eval k={k} "
+                        f"W={n_words} {mode}: differs from the host fold")
+                if n_words == 40:
+                    seen_mono.append(f"{mode} (chunk {chunk}, bw {bw})")
             for mode, spec in budgets.items():
                 bw, smem, chunk = plan_streamed(tp.n_rows, n_words, n_levels,
                                                 n_tiles, 8, k, spec)
@@ -498,8 +562,9 @@ def phase_kernels(torch, errs):
                 if n_words == 40:
                     seen.append(f"{mode} (chunk {chunk}, bw {bw})")
         print(f"[kernels] k={k}: {mapped.n_luts} LUTs in {n_tiles} tiles of "
-              f"8, lut_eval and lut_eval_streamed == plain at W in 1/7/40; "
-              "streamed walk " + ", ".join(seen))
+              f"8 and {n_levels} x {lw} stacked slots, lut_eval and "
+              f"lut_eval_streamed == plain at W in 1/7/40; monolithic walk "
+              + ", ".join(seen_mono) + "; streamed walk " + ", ".join(seen))
 
 
 def phase_serve(torch):
@@ -584,9 +649,18 @@ def phase_timing(torch, runs, batch, errs, card):
     beside it. The bound counts the least bytes the function moves
     (``netlist_work``; lut_layer's tables at their stored width), the
     bytes of the padded plan tensors are printed beside it."""
-    from repro_torch.kernels.lut_eval import plan_streamed, streamed_smem_bytes
-    from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+    from repro_torch.kernels.lut_eval import (plan_stacked, plan_streamed,
+                                              stacked_smem_bytes,
+                                              streamed_smem_bytes)
+    from repro_torch.kernels.lut_layer import (layer_smem_bytes, lut_layer,
+                                               lut_layer_ref, plan_layer)
     rows = []
+    # the launch floor: the smallest kernel torch launches
+    one = torch.ones(1, device="cuda")
+    floor, n_floor = device_us(one.zero_, None)
+    require(floor is not None, "the profiler saw no device time of zero_")
+    print(f"[timing] launch floor: one-element zero_ {floor:.2f} us per "
+          f"launch on the device ({n_floor} launches) on {card}")
 
     def row(name, fn, plain, n_bytes, n_ops, launches, plan_bytes):
         ms, plain_ms = time_ms(fn), time_ms(plain)
@@ -601,7 +675,8 @@ def phase_timing(torch, runs, batch, errs, card):
         print(f"[timing] {name}: {ms:.5f} ms (plain {plain_ms:.5f} ms, "
               f"bound {b_ms:.7f} ms by {b_by}: {n_bytes} least bytes, "
               f"{n_ops} ops; plan tensors {plan_bytes} bytes); device "
-              + (f"{dev:.2f} us per launch back to back ({n} launches)"
+              + (f"{dev:.2f} us per launch back to back ({n} launches; "
+                 f"launch floor {floor:.2f} us)"
                  if n else "time not seen by the profiler") + f" on {card}")
 
     for name in ("lut_eval_streamed", "lut_eval"):
@@ -619,6 +694,21 @@ def phase_timing(torch, runs, batch, errs, card):
             print(f"[timing] served JSC-S W={words.shape[1]}: the streamed "
                   f"plan ({tp.n_tiles} tiles) staged whole, {used} bytes of "
                   f"shared memory with the plane, one block of {bw} words")
+        else:
+            dp = ex.dp
+            n_levels, lw = dp.out_wires.shape
+            geom = (dp.n_wires + 1, words.shape[1], n_levels, lw, dp.k)
+            bw, smem, chunk = plan_stacked(*geom)
+            require(chunk >= n_levels * lw and smem, "the served stacked "
+                    "plan is not staged whole beside the plane in shared "
+                    "memory")
+            used = stacked_smem_bytes(n_levels, lw, dp.k, chunk,
+                                      dp.n_wires + 1, bw, smem)
+            print(f"[timing] served JSC-S W={words.shape[1]}: the stacked "
+                  f"plan ({n_levels} levels x {lw} slots, "
+                  f"{int((dp.out_wires < dp.n_wires).sum())} LUTs) staged "
+                  f"whole, {used} bytes of shared memory with the plane, "
+                  f"one block of {bw} words")
         check(errs, name, ex.plane(words), ex.plane(words, plain=True),
               f"served JSC-S batch W={words.shape[1]}")
         n_bytes, n_ops = netlist_work(eng.bitnet.mapped, words.shape[1])
@@ -643,10 +733,22 @@ def phase_timing(torch, runs, batch, errs, card):
 
     n_bytes, n_ops, plan_bytes, c = 0, 0, 0, codes0
     for i, (idx, tables, lt) in enumerate(layers):
-        nxt = lut_layer(c, idx, tables, lt.in_spec.n_levels)
-        check(errs, "lut_layer", nxt,
-              lut_layer_ref(c, idx, tables, lt.in_spec.n_levels),
+        L = lt.in_spec.n_levels
+        nxt = lut_layer(c, idx, tables, L)
+        check(errs, "lut_layer", nxt, lut_layer_ref(c, idx, tables, L),
               f"served JSC-S batch, layer {i}")
+        shape = (*c.shape, *idx.shape, tables.shape[1])
+        n_tile, b_tile, smem = plan_layer(*shape)
+        require(smem, f"served layer {i} {shape} is not staged in shared "
+                "memory")
+        dev, n = device_us(lambda c=c, idx=idx, tables=tables, L=L:
+                           lut_layer(c, idx, tables, L), "lut_layer_kernel")
+        print(f"[timing] lut_layer served layer {i} (B, n_in, N, K, R) "
+              f"{shape}: blocks of {n_tile} neurons x {b_tile} rows, "
+              f"{layer_smem_bytes(n_tile, b_tile, shape[1], shape[3], shape[4])}"
+              " bytes of shared memory; device "
+              + (f"{dev:.2f} us per launch back to back ({n} launches)"
+                 if n else "time not seen by the profiler") + f" on {card}")
         n_bytes += nbytes(c, idx, nxt) + lt.tables.nbytes
         plan_bytes += nbytes(c, idx, tables, nxt)
         n_ops += 2 * idx.shape[1] * nxt.numel()

@@ -10,60 +10,138 @@
 //
 // What bounds it on this card. Each output is K gathered codes, K
 // multiply-adds and one table read: far below the operation rate, so
-// it is bound by bytes, and at serving sizes (B = 256, N = 32..64,
-// R = 27) by launch latency.
+// it is bound by bytes, and at serving sizes (B = 256, N = 5..64,
+// R = 27) by latency: the launch and one round trip to device memory.
 //
-// What the design does about it. One thread per (b, j). A block owns a
-// tile of 32 neurons and 64 batch rows: its 32 tables and fanin index
-// rows are staged once in shared memory and read by all 64 rows, so
-// device memory sees each table once per batch tile. Neighbouring
-// threads take neighbouring neurons, so the output stores coalesce.
-// When 32 tables do not fit in 48 KB (R > 376) the tables are read
-// from device memory instead (use_smem = 0, chosen by the launcher).
+// What the design does about it. A block owns a tile of n_tile neurons
+// and b_tile batch rows (the wrapper sizes both from the 227 KB
+// budget, kernels/lut_layer/ops.py::plan_layer) and computes its
+// n_tile x b_tile outputs with one thread each. Its threads first copy
+// the tile's fanin rows, tables and rows of codes into shared memory
+// together, with 16-byte cp.async copies where aligned, then wait once
+// at one barrier: one device-memory round trip per block, every load of
+// a thread in flight before any is used. After the barrier every gather
+// reads shared memory. Neighbouring threads take neighbouring neurons,
+// so the output stores coalesce. Where not even one neuron's table and
+// one row of codes fit the budget, the block reads codes, fanin rows
+// and tables from device memory instead (kSmem = false).
+//  * K is a template parameter for K = 1..6, so a thread's K code
+//    loads are issued together; K = 0 is the instance for any other
+//    fanin, with a loop of run-time length.
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kTileN = 32;   // neurons per block (threadIdx.x)
-constexpr int kRowsY = 8;    // threadIdx.y
-constexpr int kTileB = 64;   // batch rows per block
-constexpr size_t kStaticSmem = 48 * 1024;
+using repro::allow_smem;
+using repro::copy_words;
+using repro::cp_async_wait_all;
 
-__global__ void __launch_bounds__(kTileN * kRowsY)
+constexpr int kThreads = 256;
+
+__host__ __device__ inline int align4(int words) { return (words + 3) & ~3; }
+
+// Shared memory of the kSmem branch, in 32-bit words: the fanin rows
+// (n_tile x k), the tables (n_tile x R), the codes (b_tile x n_in),
+// each part 16-byte aligned (ops.py::layer_smem_bytes).
+__host__ __device__ inline int smem_words(int n_tile, int b_tile, int n_in,
+                                          int k, int R) {
+  return align4(n_tile * k) + align4(n_tile * R) + b_tile * n_in;
+}
+
+// row[j] of one output: sum_k codes[idx[k]] * L^k in wrapping unsigned
+// arithmetic, from a row of codes `cb` and a fanin row `ji`.
+template <int K>
+__device__ __forceinline__ unsigned table_row(const int* cb, const int* ji,
+                                              int k, unsigned L) {
+  unsigned row = 0, w = 1;
+  if constexpr (K > 0) {
+    unsigned c[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) c[i] = static_cast<unsigned>(cb[ji[i]]);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      row += c[i] * w;
+      w *= L;
+    }
+  } else {
+    for (int i = 0; i < k; ++i) {
+      row += static_cast<unsigned>(cb[ji[i]]) * w;
+      w *= L;
+    }
+  }
+  return row;
+}
+
+// Block blockIdx.x owns neuron tile blockIdx.x % n_ntiles and batch tile
+// blockIdx.x / n_ntiles.
+template <int K, bool kSmem>
+__global__ void __launch_bounds__(kThreads)
 lut_layer_kernel(const int* __restrict__ codes, const int* __restrict__ idx,
                  const int* __restrict__ tables, int* __restrict__ out,
-                 int B, int n_in, int N, int K, int R, int L, int use_smem) {
-  extern __shared__ int smem[];
-  int* s_idx = smem;                       // (kTileN, K)
-  int* s_tab = smem + kTileN * K;          // (kTileN, R) when use_smem
-  const int j0 = blockIdx.x * kTileN;
-  const int b0 = blockIdx.y * kTileB;
-  const int nj = min(kTileN, N - j0);
-  const int tid = threadIdx.y * kTileN + threadIdx.x;
-  const int n_threads = kTileN * kRowsY;
-
-  for (int i = tid; i < nj * K; i += n_threads) s_idx[i] = idx[j0 * K + i];
-  if (use_smem)
-    for (int i = tid; i < nj * R; i += n_threads)
-      s_tab[i] = tables[size_t(j0) * R + i];
-  __syncthreads();
-
-  const int jl = threadIdx.x;
-  if (jl >= nj) return;
-  const int j = j0 + jl;
-  const int* tab = use_smem ? s_tab + jl * R : tables + size_t(j) * R;
-  const int* my_idx = s_idx + jl * K;
-  const int b1 = min(B, b0 + kTileB);
-  for (int b = b0 + threadIdx.y; b < b1; b += kRowsY) {
-    const int* cb = codes + size_t(b) * n_in;
-    unsigned row = 0, w = 1;               // unsigned: wraps like int32
-    for (int k = 0; k < K; ++k) {
-      row += static_cast<unsigned>(cb[my_idx[k]]) * w;
-      w *= static_cast<unsigned>(L);
-    }
-    out[size_t(b) * N + j] = tab[static_cast<int>(row)];
+                 int B, int n_in, int N, int k_any, int R, int L, int n_tile,
+                 int b_tile, int n_ntiles) {
+  extern __shared__ __align__(16) int smem[];
+  const int k = K > 0 ? K : k_any;
+  const int j0 = (blockIdx.x % n_ntiles) * n_tile;
+  const int b0 = (blockIdx.x / n_ntiles) * b_tile;
+  const int nj = min(n_tile, N - j0), nb = min(b_tile, B - b0);
+  const int* t_idx = idx + j0 * k;
+  const int* t_tab = tables + j0 * R;
+  const int* t_codes = codes + b0 * n_in;
+  if constexpr (kSmem) {
+    int* s_idx = smem;
+    int* s_tab = s_idx + align4(n_tile * k);
+    int* s_codes = s_tab + align4(n_tile * R);
+    copy_words(s_idx, t_idx, nj * k, threadIdx.x, kThreads);
+    copy_words(s_tab, t_tab, nj * R, threadIdx.x, kThreads);
+    copy_words(s_codes, t_codes, nb * n_in, threadIdx.x, kThreads);
+    cp_async_wait_all();
+    __syncthreads();
+    t_idx = s_idx;
+    t_tab = s_tab;
+    t_codes = s_codes;
   }
+  for (int o = threadIdx.x; o < nb * nj; o += kThreads) {
+    const int bl = o / nj, jl = o - bl * nj;
+    const unsigned row = table_row<K>(t_codes + bl * n_in, t_idx + jl * k,
+                                      k, static_cast<unsigned>(L));
+    out[(b0 + bl) * N + j0 + jl] = t_tab[jl * R + static_cast<int>(row)];
+  }
+}
+
+template <int K, bool kSmem>
+cudaError_t launch(const int* codes, const int* idx, const int* tables,
+                   int* out, int B, int n_in, int N, int k, int R, int L,
+                   int n_tile, int b_tile, cudaStream_t stream) {
+  static size_t opted = 0;
+  const size_t smem =
+      kSmem ? size_t(smem_words(n_tile, b_tile, n_in, k, R)) * sizeof(int)
+            : 0;
+  const cudaError_t err = allow_smem(lut_layer_kernel<K, kSmem>, smem, opted);
+  if (err != cudaSuccess) return err;
+  const int n_ntiles = (N + n_tile - 1) / n_tile;
+  const long long grid =
+      static_cast<long long>(n_ntiles) * ((B + b_tile - 1) / b_tile);
+  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  lut_layer_kernel<K, kSmem>
+      <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+          codes, idx, tables, out, B, n_in, N, k, R, L, n_tile, b_tile,
+          n_ntiles);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch(const int* codes, const int* idx, const int* tables,
+                   int* out, int B, int n_in, int N, int k, int R, int L,
+                   int n_tile, int b_tile, int use_smem,
+                   cudaStream_t stream) {
+  return use_smem ? launch<K, true>(codes, idx, tables, out, B, n_in, N, k,
+                                    R, L, n_tile, b_tile, stream)
+                  : launch<K, false>(codes, idx, tables, out, B, n_in, N, k,
+                                     R, L, n_tile, b_tile, stream);
 }
 
 }  // namespace
@@ -71,22 +149,27 @@ lut_layer_kernel(const int* __restrict__ codes, const int* __restrict__ idx,
 extern "C" {
 
 // codes (B, n_in); idx (N, K); tables (N, R); out (B, N). All int32,
-// contiguous, on the device of `stream`. Returns a cudaError_t.
+// contiguous, on the device of `stream`. Blocks of n_tile neurons and
+// b_tile batch rows, staged in shared memory when use_smem. Returns a
+// cudaError_t.
 int lut_layer_launch(const void* codes, const void* idx, const void* tables,
                      void* out, int B, int n_in, int N, int K, int R, int L,
-                     void* stream) {
-  const size_t idx_bytes = size_t(kTileN) * K * sizeof(int);
-  const size_t tab_bytes = size_t(kTileN) * R * sizeof(int);
-  const int use_smem = idx_bytes + tab_bytes <= kStaticSmem;
-  const size_t smem = idx_bytes + (use_smem ? tab_bytes : 0);
-  if (smem > kStaticSmem) return cudaErrorInvalidValue;
-  const dim3 grid((N + kTileN - 1) / kTileN, (B + kTileB - 1) / kTileB);
-  const dim3 block(kTileN, kRowsY);
-  lut_layer_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(codes), static_cast<const int*>(idx),
-      static_cast<const int*>(tables), static_cast<int*>(out), B, n_in, N, K,
-      R, L, use_smem);
-  return cudaGetLastError();
+                     int n_tile, int b_tile, int use_smem, void* stream) {
+  auto* c = static_cast<const int*>(codes);
+  auto* i = static_cast<const int*>(idx);
+  auto* t = static_cast<const int*>(tables);
+  auto* y = static_cast<int*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n_tile < 1 || b_tile < 1) return cudaErrorInvalidValue;
+  switch (K) {
+    case 1: return launch<1>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    case 2: return launch<2>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    case 3: return launch<3>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    case 4: return launch<4>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    case 5: return launch<5>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    case 6: return launch<6>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+    default: return launch<0>(c, i, t, y, B, n_in, N, K, R, L, n_tile, b_tile, use_smem, s);
+  }
 }
 
 }  // extern "C"

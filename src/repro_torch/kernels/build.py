@@ -1,7 +1,8 @@
 """Build the CUDA sources of ``repro_torch/csrc`` at first use.
 
-Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers),
-so ``nvcc`` compiles each in seconds. All sources are compiled at once,
+Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers;
+``csrc/*.cuh`` holds device helpers they share), so ``nvcc`` compiles
+each in seconds. All sources are compiled at once,
 one ``nvcc`` process each, then linked into one shared library that is
 loaded with ``ctypes``. The library lands in
 ``<repo>/build/repro_torch_kernels/<hash>/``, keyed by a hash of the
@@ -33,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "lut_eval_launch": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "lut_eval_launch": [_P] * 5 + [_I] * 9 + [_P],
     "lut_eval_streamed_launch": [_P] * 6 + [_I] * 10 + [_P],
-    "lut_layer_launch": [_P] * 4 + [_I] * 6 + [_P],
+    "lut_layer_launch": [_P] * 4 + [_I] * 9 + [_P],
     "aig_sim_launch": [_P] * 4 + [_I] * 3 + [_P],
     "xnor_popcount_launch": [_P] * 3 + [_I] * 4 + [_P],
     "fanin_matmul_launch": [_P] * 5 + [_I] * 4 + [_P],

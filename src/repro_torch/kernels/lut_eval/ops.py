@@ -20,7 +20,8 @@ from ..common import check_int32, require_cuda, stream_of
 from ..spec import DEFAULT_SPEC, KernelSpec
 from .ref import lut_eval_ref, lut_eval_streamed_ref
 
-MAX_K = 6     # the kernels unroll the fold for k = 1..6
+MAX_K = 6            # the kernels unroll the fold for k = 1..6
+MAX_BLOCK_W = 512    # word columns a block's 256 compute threads cover
 
 
 def plan_block(n_rows: int, w: int,
@@ -29,7 +30,7 @@ def plan_block(n_rows: int, w: int,
     of ``w`` words: the spec's word tile, narrowed until the block's
     slice of the plane fits the shared-memory budget; if not even one
     column fits, the plane stays in device memory."""
-    bw = spec.tile.clamp_block_w(w)
+    bw = min(MAX_BLOCK_W, spec.tile.clamp_block_w(w))
     fit = spec.tile.smem_budget_bytes // (4 * max(1, n_rows))
     if fit >= 1:
         return min(bw, fit), True
@@ -41,73 +42,114 @@ def _align4(words: int) -> int:
 
 
 def tt_stride(k: int) -> int:
-    """Words between two slots' INIT rows in the streamed walk's shared
-    memory (2^k plus a 16-byte pad that spreads neighbouring rows over
-    the banks)."""
+    """Words between two slots' INIT rows in the walks' shared memory
+    (2^k plus a 16-byte pad that spreads neighbouring rows over the
+    banks)."""
     return 4 if k == 1 else (1 << k) + 4
+
+
+def walk_smem_bytes(meta_words: int, n_slots: int, k: int, chunk: int,
+                    slot_rows: bool, n_rows: int, bw: int,
+                    use_smem: bool) -> int:
+    """Shared memory of one block of either walk (the kernel's
+    ``WalkLayout``): the plan layout's meta, the plan area (the whole
+    plan when ``chunk >= n_slots``, else two regions of ``chunk`` slots;
+    INIT rows ``tt_stride(k)`` words apart, leaf rows, and each slot's
+    output row when ``slot_rows``) and, if ``use_smem``, the block's
+    ``n_rows x bw`` plane; each part 16-byte aligned."""
+    slots = n_slots if chunk >= n_slots else 2 * chunk
+    words = (_align4(meta_words) + slots * tt_stride(k) + _align4(slots * k)
+             + (_align4(slots) if slot_rows else 0)
+             + (n_rows * bw if use_smem else 0))
+    return 4 * words
 
 
 def streamed_smem_bytes(n_levels: int, n_tiles: int, T: int, k: int,
                         chunk: int, n_rows: int, bw: int,
                         use_smem: bool) -> int:
-    """Shared memory of one block of the streamed walk (the kernel's
-    ``StreamLayout``): level_start and out_base, the plan area (the
-    whole plan when ``chunk >= n_tiles``, else two regions of ``chunk``
-    tiles; INIT rows ``tt_stride(k)`` words apart) and, if ``use_smem``,
-    the block's ``n_rows x bw`` plane; each part 16-byte aligned."""
-    regions, tiles = (1, n_tiles) if chunk >= n_tiles else (2, chunk)
-    words = (_align4(n_levels + 1 + n_tiles)
-             + regions * tiles * T * tt_stride(k)
-             + _align4(regions * tiles * T * k)
-             + (n_rows * bw if use_smem else 0))
-    return 4 * words
+    """``walk_smem_bytes`` of the streamed walk: level_start and
+    out_base as meta, ``chunk`` counted in tiles of T slots."""
+    return walk_smem_bytes(n_levels + 1 + n_tiles, n_tiles * T, k,
+                           chunk * T, False, n_rows, bw, use_smem)
+
+
+def stacked_smem_bytes(n_levels: int, lw: int, k: int, chunk: int,
+                       n_rows: int, bw: int, use_smem: bool) -> int:
+    """``walk_smem_bytes`` of the monolithic walk over a level-stacked
+    plan of ``n_levels`` levels of ``lw`` slots: no meta, each slot's
+    output row staged beside its leaves."""
+    return walk_smem_bytes(0, n_levels * lw, k, chunk, True, n_rows, bw,
+                           use_smem)
+
+
+def _largest_chunk(size, top: int, limit: int) -> int:
+    """The most plan units (at least 1, at most ``top``) whose plan area,
+    ``size(chunk)`` bytes, fits ``limit``."""
+    per_unit = max(1, size(2) - size(1))
+    chunk = max(1, min(top, (limit - size(0)) // per_unit))
+    while chunk > 1 and size(chunk) > limit:
+        chunk -= 1
+    while chunk < top and size(chunk + 1) <= limit:
+        chunk += 1
+    return chunk
+
+
+def _plan_walk(n_rows: int, w: int, n_units: int, top: int, size,
+               spec: KernelSpec, unit: str) -> Tuple[int, bool, int]:
+    """(word tile, plane in shared memory?, chunk) of a walk over a plan
+    of ``n_units`` units (tiles or slots) whose meta and plan area take
+    ``size(chunk)`` bytes, a chunk of at most ``top`` units.
+
+    The whole plan is staged in shared memory (``chunk = n_units``) when
+    it fits beside at least one column of the plane; the word tile is
+    then narrowed to what is left (``plan_block``). Otherwise the plan
+    streams through two regions that take at most half the budget and
+    the plane gets the rest. If not one column of the plane fits beside
+    the plan, the plane stays in device memory and the plan takes what
+    fits of the budget."""
+    budget = spec.tile.smem_budget_bytes
+    staged = max(1, n_units)
+    for chunk in (staged, _largest_chunk(size, min(staged, top),
+                                         budget // 2)):
+        bw, smem = plan_block(n_rows, w, spec.with_tile(
+            smem_budget_bytes=budget - size(chunk)))
+        if smem:
+            return bw, True, chunk
+    bw = min(MAX_BLOCK_W, spec.tile.clamp_block_w(w))
+    if size(staged) <= budget:
+        return bw, False, staged
+    chunk = _largest_chunk(size, min(staged, top), budget)
+    if size(chunk) > budget:
+        raise ValueError(f"{unit} does not fit {budget} bytes of shared "
+                         "memory")
+    return bw, False, chunk
 
 
 @functools.lru_cache(maxsize=256)
 def plan_streamed(n_rows: int, w: int, n_levels: int, n_tiles: int, T: int,
                   k: int, spec: KernelSpec = DEFAULT_SPEC
                   ) -> Tuple[int, bool, int]:
-    """(word tile, plane in shared memory?, chunk) of the streamed walk.
+    """(word tile, plane in shared memory?, chunk in tiles) of the
+    streamed walk (``_plan_walk`` over the plan's tiles)."""
+    return _plan_walk(
+        n_rows, w, n_tiles, n_tiles,
+        lambda c: streamed_smem_bytes(n_levels, n_tiles, T, k, c, 0, 0,
+                                      False),
+        spec, f"a tile of {T} slots at k={k}")
 
-    The whole plan is staged in shared memory (``chunk = n_tiles``) when
-    it fits beside at least one column of the plane; the word tile is
-    then narrowed to what is left. Otherwise the plan streams through two
-    regions that take at most half the budget (``chunk`` tiles each) and
-    the plane gets the rest. If not one column of the plane fits beside
-    the plan, the plane stays in device memory and the plan takes what
-    fits of the budget."""
-    budget = spec.tile.smem_budget_bytes
-    bw0 = spec.tile.clamp_block_w(w)
-    col = 4 * n_rows                     # one word column of the plane
 
-    def size(chunk):                     # the plan area and the meta
-        return streamed_smem_bytes(n_levels, n_tiles, T, k, chunk, 0, 0,
-                                   False)
-
-    def largest_chunk(limit):
-        """The most tiles two regions can hold within ``limit`` bytes
-        (at least 1)."""
-        per_tile = 8 * T * (tt_stride(k) + k)
-        chunk = max(1, min(n_tiles, (limit - size(0)) // per_tile))
-        while chunk > 1 and size(chunk) > limit:
-            chunk -= 1
-        while chunk < n_tiles and size(chunk + 1) <= limit:
-            chunk += 1
-        return chunk
-
-    staged = max(1, n_tiles)
-    if size(staged) + col <= budget:
-        return min(bw0, (budget - size(staged)) // col), True, staged
-    chunk = largest_chunk(budget // 2)
-    if size(chunk) + col <= budget:
-        return min(bw0, (budget - size(chunk)) // col), True, chunk
-    if size(staged) <= budget:
-        return bw0, False, staged
-    chunk = largest_chunk(budget)
-    if size(chunk) > budget:
-        raise ValueError(f"a tile of {T} slots at k={k} does not fit "
-                         f"{budget} bytes of shared memory")
-    return bw0, False, chunk
+@functools.lru_cache(maxsize=256)
+def plan_stacked(n_rows: int, w: int, n_levels: int, lw: int, k: int,
+                 spec: KernelSpec = DEFAULT_SPEC) -> Tuple[int, bool, int]:
+    """(word tile, plane in shared memory?, chunk in slots) of the
+    monolithic walk over ``n_levels`` levels of ``lw`` slots
+    (``_plan_walk`` over its slots): staged whole when it fits beside the
+    plane, else streamed level by level, a chunk being at most one
+    level."""
+    return _plan_walk(
+        n_rows, w, n_levels * lw, max(1, lw),
+        lambda c: stacked_smem_bytes(n_levels, lw, k, c, 0, 0, False),
+        spec, f"a slot at k={k}")
 
 
 def level_starts(level_of_tile: np.ndarray) -> np.ndarray:
@@ -132,7 +174,9 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     pi_words (n_pis, W); leaf_idx (n_levels, Lw, k); tt_bits
     (n_levels, Lw, 2^k); out_wires (n_levels, Lw); all int32 and
     contiguous on one device. Leaves must be wires of earlier levels
-    (as ``compile_device_plan`` builds them)."""
+    and pad slots must write the dump row with zero masks (as
+    ``compile_device_plan`` builds them); ``plan_stacked`` sizes the
+    launch."""
     dev = pi_words.device
     check_int32("pi_words", pi_words, dev, 2)
     check_int32("leaf_idx", leaf_idx, dev, 3)
@@ -157,14 +201,16 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     if w == 0:
         return out
     if tt_bits.data_ptr() % min(16, 4 << k):
-        raise ValueError("tt_bits: the kernel reads each slot's INIT masks "
-                         f"as {min(16, 4 << k)}-byte vectors; its data is "
-                         "not aligned to that")
-    bw, use_smem = plan_block(n_wires + 1, w, spec or DEFAULT_SPEC)
+        raise ValueError("tt_bits: the kernel stages each slot's INIT "
+                         f"masks as {min(16, 4 << k)}-byte copies; its "
+                         "data is not aligned to that")
+    kk = k if n_levels else 1
+    bw, use_smem, chunk = plan_stacked(n_wires + 1, w, n_levels, lw, kk,
+                                       spec or DEFAULT_SPEC)
     err = build.library().lut_eval_launch(
         pi_words.data_ptr(), leaf_idx.data_ptr(), tt_bits.data_ptr(),
         out_wires.data_ptr(), out.data_ptr(), n_pis, n_wires + 1, n_levels,
-        lw, k if n_levels else 1, w, bw, int(use_smem), stream_of(dev))
+        lw, kk, w, bw, int(use_smem), chunk, stream_of(dev))
     build.check(err, "lut_eval")
     lut_eval.launches += 1
     return out

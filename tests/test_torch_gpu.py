@@ -17,11 +17,12 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval, lut_eval_ref,
                                           lut_eval_streamed,
                                           lut_eval_streamed_ref,
-                                          plan_streamed)
+                                          plan_stacked, plan_streamed,
+                                          stacked_smem_bytes)
 from repro_torch.kernels.lut_eval.ops import streamed_smem_bytes, tt_stride
 from repro_torch.kernels.spec import DEFAULT_SPEC
 from repro_torch.synth.executor import _compile_plan
-from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref, plan_layer
 from repro_torch.kernels.xnor_popcount import (pack_bipolar,
                                                xnor_matmul_packed,
                                                xnor_popcount_ref)
@@ -150,6 +151,51 @@ def test_lut_eval_plan_branches_match_plain(cuda_device, k, mode):
                            lut_eval_ref(words, *args, n_wires=dp.n_wires))
 
 
+def stacked_budget(mode, n_rows, n_levels, lw, k):
+    """A shared-memory budget that puts the monolithic walk on one
+    branch: the default ("staged": the whole plan beside the plane), two
+    regions of ten slots and a plane column in each half ("streamed":
+    chunks of fewer slots than a level), or two one-slot regions and
+    nothing more ("device": the plane in device memory)."""
+    if mode == "staged":
+        return DEFAULT_SPEC
+    if mode == "streamed":
+        budget = 2 * (stacked_smem_bytes(n_levels, lw, k, 10, 0, 0, False)
+                      + 4 * n_rows)
+    else:
+        budget = stacked_smem_bytes(n_levels, lw, k, 1, 0, 0, False) + 64
+    return DEFAULT_SPEC.with_tile(smem_budget_bytes=budget)
+
+
+@pytest.mark.parametrize("mode", ["staged", "streamed", "device"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+def test_lut_eval_stacked_branches_match_plain(cuda_device, k, mode):
+    """The monolithic walk at every fold width on each of its branches
+    (``stacked_budget``), against its plain version and the host fold."""
+    mapped = random_netlist(k, k)
+    dp = synth.compile_device_plan(mapped)
+    n_levels, lw = dp.out_wires.shape
+    spec = stacked_budget(mode, dp.n_wires + 1, n_levels, lw, k)
+    args = [_i32(a, cuda_device) for a in (dp.leaf_idx, dp.tt_bits,
+                                           dp.out_wires)]
+    for n_words in (1, 7, 40):
+        host_words = synth.random_words(mapped.n_pis, n_words, seed=k)
+        words = _i32(host_words, cuda_device)
+        _, smem, chunk = plan_stacked(dp.n_wires + 1, n_words, n_levels, lw,
+                                      k, spec)
+        assert (chunk >= n_levels * lw, smem) == (mode == "staged",
+                                                  mode != "device")
+        assert mode == "staged" or chunk < lw
+        got = lut_eval(words, *args, n_wires=dp.n_wires, spec=spec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, lut_eval_ref(words, *args,
+                                             n_wires=dp.n_wires))
+        out = got.cpu().numpy().view(np.uint32)[dp.out_idx]
+        out[dp.out_neg] = ~out[dp.out_neg]
+        np.testing.assert_array_equal(
+            out, synth.execute_packed(mapped, host_words))
+
+
 def test_lut_eval_refuses_misaligned_masks(cuda_device, mapped):
     """The monolithic walk reads each slot's INIT masks as 16-byte
     vectors; masks at an address off that alignment are refused."""
@@ -169,7 +215,7 @@ def test_lut_eval_refuses_misaligned_masks(cuda_device, mapped):
 @pytest.mark.parametrize("B,n_in,N,K,L", [
     (8, 16, 32, 3, 2), (130, 20, 50, 4, 2), (64, 64, 128, 6, 2),
     (33, 10, 7, 2, 4), (16, 24, 200, 5, 3), (256, 64, 32, 3, 3),
-    (70, 30, 9, 6, 3)])      # 729-row tables: read from device memory
+    (70, 30, 9, 6, 3)])      # 729-row tables
 def test_lut_layer_kernel_matches_plain(cuda_device, B, n_in, N, K, L):
     rng = np.random.default_rng(B * 7 + N)
     codes, idx, tables = (
@@ -180,6 +226,34 @@ def test_lut_layer_kernel_matches_plain(cuda_device, B, n_in, N, K, L):
     got = lut_layer(codes, idx, tables, L)
     torch.cuda.synchronize()
     assert lut_layer.launches == launches + 1
+    assert torch.equal(got, lut_layer_ref(codes, idx, tables, L))
+
+
+@pytest.mark.parametrize("B,n_in,N,K,L,branch", [
+    (256, 16, 64, 3, 3, "smem"),         # JSC-S layer 1: 32-neuron tiles
+    (256, 32, 5, 3, 3, "smem"),          # JSC-S layer 3: the whole layer
+    (256, 16, 32, 4, 7, "split"),        # JSC-L layer 1: R 2,401
+    (40, 12, 20, 4, 8, "split"),         # R 4,096: two neurons a block
+    (33, 10, 3, 6, 7, "device"),         # R 117,649: a table over 227 KB
+    (5, 60_000, 7, 3, 3, "device")])     # a row of codes over 227 KB
+def test_lut_layer_kernel_branches_match_plain(cuda_device, B, n_in, N, K,
+                                               L, branch):
+    """Each branch of the kernel (``plan_layer``): tables and codes
+    staged in shared memory, by tiles of fewer neurons where the tables
+    are large ("split"), and read from device memory where one table or
+    row of codes does not fit ("device")."""
+    n_tile, b_tile, smem = plan_layer(B, n_in, N, K, L ** K)
+    assert smem == (branch != "device")
+    assert (n_tile < min(N, 32)) == (branch == "split")
+    rng = np.random.default_rng(B + N + K)
+    codes, idx = (torch.from_numpy(a.astype(np.int32)).to(cuda_device)
+                  for a in (rng.integers(0, L, (B, n_in)),
+                            rng.integers(0, n_in, (N, K))))
+    tables = torch.randint(0, 8, (N, L ** K), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(N)
+                           ).to(cuda_device)
+    got = lut_layer(codes, idx, tables, L)
+    torch.cuda.synchronize()
     assert torch.equal(got, lut_layer_ref(codes, idx, tables, L))
 
 

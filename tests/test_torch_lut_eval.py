@@ -18,7 +18,9 @@ from repro.synth.executor import _compile_plan as ref_compile_plan
 from repro_torch import synth
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval,
                                           lut_eval_streamed, plan_block,
-                                          plan_streamed, streamed_smem_bytes)
+                                          plan_stacked, plan_streamed,
+                                          stacked_smem_bytes,
+                                          streamed_smem_bytes)
 from repro_torch.kernels.spec import DEFAULT_SPEC
 from repro_torch.synth.executor import _compile_plan
 from repro_torch.synth.from_sop import table_to_aig
@@ -220,6 +222,56 @@ def test_streamed_plan_streams_what_does_not_fit():
     with pytest.raises(ValueError, match="does not fit"):
         plan_streamed(50, 1, 1, 1, 32, 6,
                       DEFAULT_SPEC.with_tile(smem_budget_bytes=5_000))
+
+
+def test_stacked_plan_layout():
+    """The monolithic walk's shared memory, as the kernel's WalkLayout
+    lays it out for a level-stacked plan: no meta, the plan area (INIT
+    rows, leaf rows, each slot's output row), the plane, each part
+    rounded up to 16 bytes."""
+    # JSC-S served batch: 5 levels x 62 slots at k = 6, 167 rows, W = 8
+    tt, leaf, rows = 310 * (64 + 4) * 4, 310 * 6 * 4, 312 * 4
+    assert stacked_smem_bytes(5, 62, 6, 310, 167, 8, True) == \
+        tt + leaf + rows + 167 * 8 * 4
+    assert stacked_smem_bytes(5, 62, 6, 999, 167, 8, False) == \
+        tt + leaf + rows                 # chunk >= n_slots: staged whole
+    # streamed: two regions of `chunk` slots, leaf and row areas rounded
+    # up to 16 bytes
+    assert stacked_smem_bytes(2, 3, 1, 1, 40, 1, True) == \
+        4 * (8 + 4 + 4 + 40)
+
+
+@pytest.mark.parametrize("n_rows,w,n_levels,lw,k,want", [
+    (167, 8, 5, 62, 6, (8, True, 310)),         # JSC-S served: staged
+    (300, 256, 30, 40, 2, (32, True, 1200)),    # an AIG as k=2 LUTs
+    (10, 1, 0, 0, 1, (1, True, 1)),             # no LUTs at all
+])
+def test_stacked_plan_stages_what_fits(n_rows, w, n_levels, lw, k, want):
+    assert plan_stacked(n_rows, w, n_levels, lw, k) == want
+
+
+def test_stacked_plan_streams_what_does_not_fit():
+    budget = DEFAULT_SPEC.tile.smem_budget_bytes
+    # the 2,040-LUT, depth-12 netlist (12 levels of 170 slots, 612 KB at
+    # k = 6) streams level by level in half the budget; the plane takes
+    # the rest
+    bw, smem, chunk = plan_stacked(2106, 130, 12, 170, 6)
+    assert (smem, chunk) == (True, 170)
+    used = stacked_smem_bytes(12, 170, 6, chunk, 2106, bw, True)
+    assert used <= budget < used + 2106 * 4
+    assert stacked_smem_bytes(12, 170, 6, 12 * 170, 0, 0, False) > budget
+    # a plane too tall for one column beside the plan: device memory, the
+    # plan still a level at a time
+    assert plan_stacked(100_000, 4, 12, 170, 6) == (4, False, 170)
+    # a small budget cuts a level into chunks of fewer slots
+    tight = DEFAULT_SPEC.with_tile(smem_budget_bytes=40_000)
+    bw, smem, chunk = plan_stacked(2106, 7, 12, 170, 6, tight)
+    assert smem and 1 < chunk < 170
+    assert stacked_smem_bytes(12, 170, 6, chunk, 0, 0, False) <= 20_000 < \
+        stacked_smem_bytes(12, 170, 6, chunk + 1, 0, 0, False)
+    with pytest.raises(ValueError, match="does not fit"):
+        plan_stacked(50, 1, 1, 4, 6,
+                     DEFAULT_SPEC.with_tile(smem_budget_bytes=500))
 
 
 def test_wrapper_rejects_bad_arguments():
