@@ -7,7 +7,12 @@ Phases, each printing its own lines:
   1. card     — ``nvidia-smi`` name and power limit, torch's device name;
   2. build    — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for
                 sm_90a (seconds, and each kernel's registers and stack
-                frame); no lut_eval walk may keep a stack;
+                frame); no lut_eval walk, aig_sim or xnor_popcount
+                instance may keep a stack or spill, and xnor_popcount's
+                SASS must hold binary tensor-core mma (BMMA);
+     probe    — ``repro_torch.bench.mma_probe``: which binary and int8
+                mma forms ptxas takes for sm_90a, one instruction of
+                each against numpy, and each one's rate;
   3. kernels  — every kernel against its plain torch version on the
                 card, bit for bit (``torch.equal``): lut_layer on JSC-S
                 layer shapes and a ragged sweep that reaches each of its
@@ -20,7 +25,9 @@ Phases, each printing its own lines:
                 memory one level at a time), and on random k-LUT
                 netlists for k = 1..6 with each walk's plan staged
                 whole, streamed in chunks of less than a level, and
-                streamed with the plane in device memory;
+                streamed with the plane in device memory; at k = 2..6
+                also with INIT masks 4 bytes past 16-byte alignment, on
+                each of those branches;
   4. serve    — the port's main path: a seeded full-width JSC-S is
                 compiled to truth tables and a mapped 6-LUT netlist and
                 serves 8 requests of 64 test rows through
@@ -44,8 +51,12 @@ Phases, each printing its own lines:
                 lut_layer, lut_eval and lut_eval_streamed bit for bit;
                 the aig_sim walk, the public ``aig_sim`` route and
                 xnor_popcount bit for bit (the bench AIG at W 1 / 7 /
-                256, a 2,500-AND plane too large for shared memory at
-                W 1 / 7 / 200; xnor with zeros and ragged B, N and n),
+                256, a strict chain, forward literals, a 60,000-AND DAG
+                whose planes sit in device memory at W 1 / 7 / 200,
+                chains of inverters that run the sweeps to their cap and
+                finish in node order, in shared and device memory; xnor
+                with zeros, ragged B, N and n across its tiles and slabs,
+                both of its load paths, and pad bits set),
                 fanin_matmul within 1e-5 of max(1, |y|) and
                 flash_attention within 2e-4 in float32 (TF32 off in the
                 plain version) and 2e-2 in bfloat16 (the reference
@@ -63,14 +74,27 @@ Phases, each printing its own lines:
                 float ones, both exact; the masked dense product in
                 float32; ``scaled_dot_product_attention``) and its device
                 time per launch and the library calls' device time per
-                call (``torch.profiler``); beside them a bfloat16 row of
-                flash_attention at the bench shape, with SDPA on the
-                bf16 operands as its library call.
+                call (``torch.profiler``); beside them the aig_sim walk
+                on a strict chain and a chain of inverters of 2,500 ANDs
+                each, and a bfloat16 row of flash_attention at the bench
+                shape, with SDPA on the bf16 operands as its library
+                call. xnor's bound counts its bit products at the rate
+                the probe measured for b1 ``and.popc`` in this run.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 those lines. Without a CUDA device, or without the repository's
 ``src/`` beside this file, it exits non-zero at once.
+
+    python3 chip_smoke.py --kernel-times
+
+prints instead one JSON line of device times per launch (the
+profiler's, back to back) of the aig_sim walk on the bench AIG, the
+strict chain and the chain of inverters, and of xnor_popcount at the
+bench shape, each first held to its plain version, for the port beside
+the script: a copy of this file in an older checkout times that
+checkout's kernels through the same wrappers, so two checkouts compare
+in one run on one card.
 """
 from __future__ import annotations
 
@@ -109,6 +133,7 @@ KERNELS = {
 F32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 TF32_OPS_PER_S = 495e12       # H100 SXM dense tensor-core peaks
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 BENCH_KERNELS = ("aig_sim", "xnor_popcount", "fanin_matmul",
                  "flash_attention")
 
@@ -195,6 +220,16 @@ def check(errs, name, got, want, what):
     errs[name] = max(errs.get(name, 0), err)
     require(torch.equal(got, want), f"{name} {what}: differs from its "
             f"plain version (max abs err {err})")
+
+
+def misaligned(t):
+    """A copy of ``t`` one int32 past a 16-byte aligned address."""
+    import torch
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = (1 - buf.data_ptr() % 16 // 4) % 4
+    out = buf[off: off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def netlist_work(mapped, n_words: int):
@@ -288,6 +323,50 @@ def wide_random_netlist(seed: int, n_pis: int = 64, n_levels: int = 12,
     return MappedNetwork(n_pis, k, luts, outputs)
 
 
+def forward_literals(seed: int, n_pis: int, n_ands: int):
+    """f0, f1 of random literals anywhere in the plane: about half name
+    the node itself or a later one, which read 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_rows = 1 + n_pis + n_ands
+    return tuple(rng.integers(0, 2 * n_rows, n_ands).astype(np.int32)
+                 for _ in range(2))
+
+
+def walk_check(torch, errs, f0, f1, n_pis, words, label):
+    """The aig_sim walk on the card against its plain version (run on
+    the CPU: a Python loop over the nodes), bit for bit; returns the
+    walk's plan (word columns a block, planes in shared memory?)."""
+    import numpy as np
+    from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
+    from repro_torch.kernels.aig_sim.ops import plan_walk
+    host = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+            for a in (words, f0, f1)]
+    check(errs, "aig_sim", aig_sim_walk(*(h.cuda() for h in host)),
+          aig_sim_ref(*host, n_pis).cuda(), f"{label} W={words.shape[1]}")
+    return plan_walk(n_pis, len(f0), words.shape[1])
+
+
+def strict_chain(seed: int, n_pis: int, n_ands: int):
+    """f0, f1 of a chain: node i ANDs node i - 1 (the last input for node
+    0) with a random earlier literal; depth n_ands, values that settle
+    early."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prev = 2 * (n_pis + np.arange(n_ands)) + rng.integers(0, 2, n_ands)
+    hi = 2 * (1 + n_pis + np.arange(n_ands))
+    return prev.astype(np.int32), (rng.random(n_ands) * hi).astype(np.int32)
+
+
+def toggling_chain(n_pis: int, n_ands: int):
+    """f0, f1 of a chain of inverters: node i is NOT node i - 1 (the last
+    input for node 0) AND the constant 1; its values change in every
+    sweep until the n_ands-th."""
+    import numpy as np
+    prev = 2 * (n_pis + np.arange(n_ands)) + 1
+    return prev.astype(np.int32), np.ones(n_ands, np.int32)
+
+
 def chain_literals(seed: int, n_pis: int, n_ands: int):
     """f0, f1 of ``n_ands`` AND nodes, each reading two random literals
     of earlier nodes (the constant and the inputs included)."""
@@ -370,6 +449,59 @@ def phase_build():
             "kernels, expected 14 (K = 1..6 and any K, each staged in "
             "shared memory and reading device memory)")
     print("[build] every lut_eval walk, k = 1..6: 0 bytes of stack")
+    for kernel, count, what in (
+            ("aig_sim", 6, "1, 2 or 4 word columns a block, planes in "
+             "shared or device memory"),
+            ("xnor_popcount", 1, "one instance")):
+        found = [(n, st) for n, _, st in report if kernel in n]
+        require(len(found) == count, f"ptxas reported {len(found)} {kernel} "
+                f"kernels, expected {count} ({what})")
+        for name, stack in found:
+            require(stack.startswith("0 bytes stack frame, 0 bytes spill"),
+                    f"{name} keeps a stack frame or spills: {stack}")
+        print(f"[build] every {kernel} instance ({count}): 0 bytes of stack, "
+              "no spill")
+    sass = sass_of(build.build().parent / build.LIB_NAME, "xnor_popcount")
+    n_bmma = sum(1 for ln in sass.splitlines() if "BMMA" in ln)
+    require(n_bmma > 0, "xnor_popcount_kernel has no BMMA (binary tensor-core"
+            " mma) instruction in its SASS")
+    print(f"[build] xnor_popcount_kernel SASS: {n_bmma} BMMA instructions "
+          "(binary mma on the tensor cores)")
+
+
+def sass_of(lib, kernel: str) -> str:
+    """The SASS of the functions of ``lib`` whose name holds ``kernel``
+    (``cuobjdump -sass`` beside nvcc)."""
+    from repro_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr[:500]}")
+    keep, mine = [], False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            mine = kernel in line
+        elif mine:
+            keep.append(line)
+    return "\n".join(keep)
+
+
+def phase_probe():
+    """The tensor-core instructions the xnor_popcount kernel may use
+    (``repro_torch.bench.mma_probe``): which ``ptxas`` takes for sm_90a,
+    whether one instruction agrees with numpy in the kernel's fragment
+    layout, and each one's rate over the card."""
+    from repro_torch.bench import mma_probe
+    res = mma_probe.run()
+    for op, r in res.items():
+        print(f"[probe] mma {op}: " + (
+            f"accepted, layout {'ok' if r['layout_ok'] else 'WRONG'}, "
+            f"{r['tops']:.1f} TOPS" if r["accepted"] else
+            f"refused by ptxas ({r['message'][:160]})"))
+    and_popc = res["b1.and.popc"]
+    require(and_popc["accepted"] and and_popc["layout_ok"]
+            and and_popc["tops"], f"the kernel's b1 and.popc mma: {and_popc}")
+    return and_popc["tops"] * 1e12
 
 
 def phase_kernels(torch, errs):
@@ -565,6 +697,30 @@ def phase_kernels(torch, errs):
               f"8 and {n_levels} x {lw} stacked slots, lut_eval and "
               f"lut_eval_streamed == plain at W in 1/7/40; monolithic walk "
               + ", ".join(seen_mono) + "; streamed walk " + ", ".join(seen))
+        if k == 1:
+            continue
+        # INIT masks one int32 past an aligned address, on every branch of
+        # both walks: the copy into shared memory takes its word-by-word
+        # path, and the plane is the plain version's
+        pw = i32(synth.random_words(mapped.n_pis, 7, seed=k))
+        for mode in stacked:
+            tt_off, tiles_off = misaligned(args[1]), misaligned(targs[0])
+            require(tt_off.data_ptr() % 16 != 0
+                    and tiles_off.data_ptr() % 16 != 0,
+                    f"k={k} {mode}: the shifted masks are 16-byte aligned")
+            check(errs, "lut_eval",
+                  lut_eval(pw, args[0], tt_off, args[2], n_wires=dp.n_wires,
+                           spec=stacked[mode]),
+                  lut_eval_ref(pw, *args, n_wires=dp.n_wires),
+                  f"k={k} {mode}, misaligned masks")
+            check(errs, "lut_eval_streamed",
+                  lut_eval_streamed(pw, tiles_off, *targs[1:],
+                                    n_rows=tp.n_rows, spec=budgets[mode]),
+                  lut_eval_streamed_ref(pw, *targs, n_rows=tp.n_rows),
+                  f"k={k} {mode}, misaligned masks")
+        print(f"[kernels] k={k}: masks at an address 4 bytes past 16-byte "
+              "alignment, both walks == plain on the staged, streamed and "
+              "device branches (W=7)")
 
 
 def phase_serve(torch):
@@ -822,7 +978,7 @@ def phase_kernels2(torch, errs):
     import numpy as np
     from repro_torch import synth
     from repro_torch.bench.kernels_bench import FULL, make_inputs
-    from repro_torch.kernels.aig_sim import aig_sim, aig_sim_ref, aig_sim_walk
+    from repro_torch.kernels.aig_sim import aig_sim
     from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
@@ -830,10 +986,12 @@ def phase_kernels2(torch, errs):
                                               lut_eval_streamed,
                                               lut_eval_streamed_ref)
     from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref
+    from repro_torch.kernels.aig_sim.ops import max_sweeps
     from repro_torch.kernels.xnor_popcount import (pack_bipolar,
                                                    xnor_matmul_packed,
                                                    xnor_matmul_ref,
                                                    xnor_popcount_ref)
+    from repro_torch.kernels.xnor_popcount.ops import loads_vectorized
     from repro_torch.synth.simulate import _simulate_np
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -866,10 +1024,9 @@ def phase_kernels2(torch, errs):
     for n_words in (1, 7, 256):
         words = (a.host_words if n_words == 256 else
                  synth.random_words(a.n_pis, n_words, seed=n_words))
-        wt = t(words.view(np.int32))
-        check(errs, "aig_sim", aig_sim_walk(wt, a.f0_t, a.f1_t),
-              aig_sim_ref(wt, a.f0_t, a.f1_t, a.n_pis),
-              f"bench AIG ({a.f0.shape[0]} ANDs) W={n_words}")
+        tw, smem = walk_check(torch, errs, a.f0, a.f1, a.n_pis, words,
+                              f"bench AIG ({a.f0.shape[0]} ANDs)")
+        require(smem, f"bench AIG W={n_words}: planes not in shared memory")
         routed = aig_sim(words, a.f0, a.f1, a.n_pis, device=dev)
         require(np.array_equal(routed, _simulate_np(a.aig, words)),
                 f"aig_sim route W={n_words}: differs from the numpy walk")
@@ -877,19 +1034,46 @@ def phase_kernels2(torch, errs):
                                               device=dev),
                                synth.simulate(a.aig, words)),
                 f"simulate(use_kernel=True) W={n_words} differs")
-    print(f"[kernels2] aig_sim walk == plain, aig_sim route == numpy walk "
-          f"on the bench AIG ({a.f0.shape[0]} ANDs), W in 1/7/256")
-    f0, f1 = (t(f) for f in chain_literals(5, 16, 2500))
-    for n_words in (1, 7, 200):     # 2,517 rows: the plane in device memory
-        wt = t(synth.random_words(16, n_words, seed=n_words).view(np.int32))
-        check(errs, "aig_sim", aig_sim_walk(wt, f0, f1),
-              aig_sim_ref(wt, f0, f1, 16), f"2500-AND chain W={n_words}")
-    print("[kernels2] aig_sim walk == plain on a 2,500-AND chain (plane in "
-          "device memory), W in 1/7/200")
+        print(f"[kernels2] aig_sim walk == plain on the bench AIG "
+              f"({a.f0.shape[0]} ANDs) at W={n_words}: tiles of {tw} words, "
+              f"{-(-n_words // tw)} blocks, planes in shared memory; route "
+              "== numpy walk")
+    # a strict chain (depth = node count), random literals reaching the
+    # node itself and later rows (read 0), a 60,000-AND DAG whose
+    # planes cannot fit shared memory, and chains of inverters, whose
+    # values change in every sweep up to the cap (the walk then
+    # finishes in node order), in shared and in device memory
+    cases = [("strict chain of 2,500 ANDs", strict_chain(3, 16, 2500), 16,
+              (1, 200), True),
+             ("forward literals, 3,000 ANDs", forward_literals(4, 5, 3000),
+              5, (1, 33), True),
+             ("60,000-AND DAG", chain_literals(5, 16, 60_000), 16,
+              (1, 7, 200), False),
+             ("chain of 2,500 inverters", toggling_chain(16, 2500), 16,
+              (1, 200), True),
+             ("chain of 60,000 inverters", toggling_chain(16, 60_000), 16,
+              (3,), False)]
+    for label, (f0, f1), n_pis, widths, in_smem in cases:
+        if "inverters" in label:     # depth n_ands, a change every sweep
+            require(len(f0) > max_sweeps(len(f0)), f"aig_sim {label}: "
+                    "the sweeps end before their cap")
+        for n_words in widths:
+            words = synth.random_words(n_pis, n_words, seed=n_words)
+            tw, smem = walk_check(torch, errs, f0, f1, n_pis, words, label)
+            require(smem == in_smem, f"aig_sim {label} W={n_words}: planes "
+                    f"in shared memory {smem}, expected {in_smem}")
+        print(f"[kernels2] aig_sim walk == plain on the {label}, W in "
+              f"{'/'.join(map(str, widths))}: planes in "
+              f"{'shared' if in_smem else 'device'} memory"
+              + (f"; {max_sweeps(len(f0))} sweeps, then node order"
+                 if "inverters" in label else ""))
 
     rng = np.random.default_rng(11)
     xshapes = [(256, 4096, 256, False), (256, 4096, 256, True),
-               (37, 100, 70, True), (1, 7, 1, True), (300, 1000, 33, False)]
+               (37, 100, 70, True), (1, 7, 1, True), (300, 1000, 33, False),
+               (17, 257, 9, True), (33, 1000, 65, False),
+               (64, 4096, 24, True), (64, 4000, 24, False)]
+    vec_seen = set()
     for (B, n, N, zeros) in xshapes:
         if (B, n, N, zeros) == (256, 4096, 256, False):
             x, w = inp.xnor.x, inp.xnor.w
@@ -898,14 +1082,25 @@ def phase_kernels2(torch, errs):
             x = t(rng.choice(vals, (B, n)), torch.float32)
             w = t(rng.choice(vals, (N, n)), torch.float32)
         xp, wp = pack_bipolar(x), pack_bipolar(w)
+        vec_seen.add(loads_vectorized(xp, wp))
         got = xnor_matmul_packed(xp, wp, n)
         check(errs, "xnor_popcount", got, xnor_popcount_ref(xp, wp, n),
               f"{(B, n, N)} zeros={zeros}")
         if not zeros:
             check(errs, "xnor_popcount", got, xnor_matmul_ref(x, w),
                   f"{(B, n, N)} against the float oracle")
-    print(f"[kernels2] xnor_popcount == plain on {len(xshapes)} shapes "
-          "(== the float oracle on +-1 inputs)")
+    require(vec_seen == {True, False}, "xnor_popcount: its 16-byte and its "
+            f"word-by-word loads were not both reached ({vec_seen})")
+    # packed words with their pad bits set: every bit of every word counts
+    for (B, n, N) in ((33, 1000, 65), (64, 4000, 24)):
+        xp, wp = (t(rng.integers(0, 1 << 32, (r, -(-n // 32)),
+                                 dtype=np.uint32).view(np.int32))
+                  for r in (B, N))
+        check(errs, "xnor_popcount", xnor_matmul_packed(xp, wp, n),
+              xnor_popcount_ref(xp, wp, n), f"{(B, n, N)} pad bits set")
+    print(f"[kernels2] xnor_popcount (binary tensor cores) == plain on "
+          f"{len(xshapes)} shapes, 16-byte and word-by-word loads (== the "
+          "float oracle on +-1 inputs), and with pad bits set")
 
     fshapes = [(256, 4096, 1024, 8), (70, 33, 45, 3), (129, 1000, 257, 5)]
     for (B, n_in, N, K) in fshapes:
@@ -981,7 +1176,58 @@ def phase_bench(torch):
     return counts
 
 
-def phase_timing2(torch, inp, counts, errs, card):
+def kernel_time_fns(torch, inp, errs):
+    """label -> (function, kernel symbol) of the kernel times: the
+    aig_sim walk on the bench AIG, on a strict chain and on a chain of
+    inverters of 2,500 ANDs each at the bench's width, and xnor_popcount
+    at the bench shape, each first held to its plain version. Only
+    wrappers whose signatures every checkout of the port shares."""
+    import numpy as np
+    from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
+    from repro_torch.kernels.xnor_popcount import (pack_bipolar,
+                                                   xnor_matmul_packed,
+                                                   xnor_popcount_ref)
+    a = inp.aig
+    words = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 1 << 32, (16, a.words.shape[1]), dtype=np.uint32)
+        .view(np.int32)).cuda()
+    walks = {"bench AIG": (a.words, a.f0_t, a.f1_t, a.n_pis)}
+    for label, lits in (("strict chain", strict_chain(0, 16, 2500)),
+                        ("chain of inverters", toggling_chain(16, 2500))):
+        walks[label] = (words, *(torch.from_numpy(f).cuda() for f in lits),
+                        16)
+    fns = {}
+    for label, (w, f0, f1, n_pis) in walks.items():
+        check(errs, "aig_sim", aig_sim_walk(w, f0, f1),
+              aig_sim_ref(w, f0, f1, n_pis), f"{label} (timing)")
+        fns[f"aig_sim {label}"] = (
+            lambda w=w, f0=f0, f1=f1: aig_sim_walk(w, f0, f1),
+            "aig_sim_kernel")
+    x, w = inp.xnor.x, inp.xnor.w
+    xp, wp = pack_bipolar(x), pack_bipolar(w)
+    check(errs, "xnor_popcount", xnor_matmul_packed(xp, wp, x.shape[1]),
+          xnor_popcount_ref(xp, wp, x.shape[1]), "bench (timing)")
+    fns["xnor_popcount bench"] = (
+        lambda: xnor_matmul_packed(xp, wp, x.shape[1]),
+        "xnor_popcount_kernel")
+    return fns
+
+
+def phase_kernel_times(torch, card):
+    """``--kernel-times``: one JSON line of the profiler's device time
+    per launch of each of ``kernel_time_fns``."""
+    import repro_torch
+    from repro_torch.bench.kernels_bench import FULL, make_inputs
+    inp = make_inputs(torch.device("cuda"), FULL)
+    res = {"package": os.path.dirname(repro_torch.__file__), "card": card}
+    for label, (fn, symbol) in kernel_time_fns(torch, inp, {}).items():
+        us, n = device_us(fn, symbol, 10)
+        require(n > 0, f"{label}: the profiler saw no {symbol}")
+        res[f"{label} device us"] = us
+    print(json.dumps(res))
+
+
+def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     """The bench-path kernels at the bench shapes: wrapper time (CUDA
     events), the plain version's (few calls), the least bytes / operations
     of this run's inputs, the library call's time and the device time per
@@ -1026,6 +1272,15 @@ def phase_timing2(torch, inp, counts, errs, card):
         lambda: aig_sim_ref(a.words, a.f0_t, a.f1_t, a.n_pis), None,
         nbytes(a.words, a.f0_t, a.f1_t) + 4 * plane_rows * n_words,
         3 * n_ands * n_words)
+    # the walk off the bench path, at the bench's width: a strict chain
+    # of 2,500 ANDs (depth 2,500, values that settle early) and a chain
+    # of 2,500 inverters (the sweeps run to their cap, then node order)
+    chains = {k: v for k, v in kernel_time_fns(torch, inp, errs).items()
+              if "chain" in k}
+    for label, (fn, _) in chains.items():
+        print(f"[timing2] {label} of 2,500 ANDs at W={n_words}: "
+              f"{time_ms(fn, iters=5, reps=5):.5f} ms (bench AIG row "
+              f"above) on {card}")
 
     # xnor's library yardsticks, both exact on +-1 operands: the int8
     # product in int32, and the TF32 float product (+-1 products summed
@@ -1057,9 +1312,17 @@ def phase_timing2(torch, inp, counts, errs, card):
         break
     print("[timing2] xnor_popcount library calls: " + ", ".join(
         f"{k} {v:.5f} ms" for k, v in libs.items()) + f" on {card}")
+    # the kernel's products run on the binary tensor cores, whose rate
+    # NVIDIA does not publish: each of the B x N x 32W bit products
+    # (AND and accumulate, two operations) at the b1 and.popc rate the
+    # probe measured on this card in this run
     row("xnor_popcount", lambda: xnor_matmul_packed(xp, wp, n),
         lambda: xnor_popcount_ref(xp, wp, n), min(libs.values()),
-        nbytes(xp, wp) + 4 * B * N, 3 * B * N * W + 2 * B * N)
+        nbytes(xp, wp) + 4 * B * N, 2 * B * N * 32 * W, b1_ops_per_s)
+    print(f"[timing2] xnor_popcount operations at the probe's b1 and.popc "
+          f"rate, {b1_ops_per_s / 1e12:.1f} TOPS (int8 tensor rate "
+          f"{INT8_OPS_PER_S / 1e12:.0f}) "
+          f"on {card}")
 
     f = inp.fanin
     B, n_in = f.x.shape
@@ -1133,7 +1396,9 @@ def phase_timing2(torch, inp, counts, errs, card):
           f"{card}")
 
     # device time per launch, one profiler session per kernel
-    for name, fn in [*fns.items(), ("flash_attention bf16", bf16_fn)]:
+    for name, fn in [*fns.items(),
+                     *((k, fn) for k, (fn, _) in chains.items()),
+                     ("flash_attention bf16", bf16_fn)]:
         dev, n = device_us(fn, name.split()[0] + "_kernel", 10)
         print(f"[timing2] {name} kernel device time "
               + (f"{dev:.2f} us per launch ({n} launches)" if n else
@@ -1173,17 +1438,21 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--kernel-times"]:
+        phase_kernel_times(torch, phase_card(torch))
+        return 0
     t_start = time.perf_counter()
     errs = {}
     card = phase_card(torch)
     phase_build()
+    b1_ops_per_s = phase_probe()
     phase_kernels(torch, errs)
     runs, batch = phase_serve(torch)
     rows = phase_timing(torch, runs, batch, errs, card)
     phase_profile(torch, runs, batch, card)
     inp = phase_kernels2(torch, errs)
     counts = phase_bench(torch)
-    rows += phase_timing2(torch, inp, counts, errs, card)
+    rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)
     require(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -15,9 +15,9 @@ the rows differ:
   * ``flash_ref_us`` times the port's plain ``attention_ref`` (the
     dense oracle over the same GQA heads); the reference times
     ``models.layers.full_attention``, which the port does not have yet;
-  * ``aig_sim_walk_us`` is added: the one-node-per-step walk kernel,
-    the reference's ``aig_sim_pallas``, against which the routed
-    ``aig_sim_pallas_us`` is the "after" row.
+  * ``aig_sim_walk_us`` is added: the walk kernel that replaces the
+    reference's ``aig_sim_pallas``, beside the routed
+    ``aig_sim_pallas_us``.
 
 Times on the card come from CUDA events around a row's calls after a
 warm-up, on the CPU from the host clock. ``run(sizes=...)`` takes other

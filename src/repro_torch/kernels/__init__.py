@@ -6,8 +6,9 @@ version.
                     ``DevicePlan``) and streamed (``lut_eval_streamed``,
                     over a ``TilePlan``);
   lut_layer       — the truth-table-lookup layer of a ``LogicNetwork``;
-  aig_sim         — the one-node-per-step AIG walk (``aig_sim_walk``),
-                    and the public ``aig_sim`` route through
+  aig_sim         — the AIG walk (``aig_sim_walk``: sweeps over all
+                    nodes until the plane stops changing), and the
+                    public ``aig_sim`` route through
                     ``lut_eval_streamed``;
   xnor_popcount   — packed bipolar matmul (``xnor_matmul_packed``,
                     ``xnor_matmul``);

@@ -2,11 +2,13 @@
 
 Two routes, as in the reference package:
 
-  * ``aig_sim_walk`` — the wrapper of the one-node-per-step walk kernel
-    (``csrc/aig_sim.cu``, the reference's ``aig_sim_pallas``): int32
-    tensors in, the whole value plane out, the plain version
-    (``ref.py``) for CPU tensors; it counts its launches in
-    ``.launches``.
+  * ``aig_sim_walk`` — the wrapper of the walk kernel
+    (``csrc/aig_sim.cu``, the reference's ``aig_sim_pallas``; sweeps
+    over all nodes at once until the plane stops changing, finished in
+    node order after ``max_sweeps``, in blocks of a few word columns
+    sized by ``plan_walk``): int32 tensors in, the whole value plane
+    out, the plain version (``ref.py``) for CPU tensors; it counts its
+    launches in ``.launches``.
   * ``aig_sim`` — the public route: an AND gate is a k=2 LUT whose
     4-entry INIT masks ``tt[a + 2b] = (a ^ c0) & (b ^ c1)`` encode both
     edge complements, so the AIG is levelized and tiled into a
@@ -19,7 +21,7 @@ Two routes, as in the reference package:
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +34,61 @@ from .ref import aig_sim_ref
 
 _PLAN_CACHE: Dict[str, "_CachedPlan"] = {}
 _PLAN_CACHE_MAX = 64
+MIN_BLOCKS = 128           # blocks a launch aims for (132 SMs)
+WORD_TILES = (4, 2, 1)     # word columns per block the kernel takes
+MAX_THREADS = 1024
+
+
+def block_threads(n_ands: int) -> int:
+    """Threads of a block of the walk: one per AND node, in whole warps,
+    at most ``MAX_THREADS``."""
+    return min(MAX_THREADS, max(32, -(-n_ands // 32) * 32))
+
+
+def walk_smem_bytes(n_pis: int, n_ands: int, tw: int) -> int:
+    """Dynamic shared memory of one block of the walk with its planes in
+    shared memory: two planes of the block's ``tw`` columns, and the
+    literals of the nodes past the block's first ``block_threads``
+    (each thread keeps its first node's in registers)."""
+    staged = max(0, n_ands - block_threads(n_ands))
+    return 4 * (2 * (1 + n_pis + n_ands) * tw + 2 * staged)
+
+
+def max_sweeps(n_ands: int) -> int:
+    """Sweeps a block of the walk runs before it finishes by walking the
+    nodes in order, one thread, in place (the kernel's rule): a sweep
+    costs about as much as 16 nodes of that walk, so an AIG whose values
+    keep changing down a long chain takes about twice the ordered walk
+    at most."""
+    return 16 + n_ands // 16
+
+
+def plan_walk(n_pis: int, n_ands: int, w: int) -> Tuple[int, bool]:
+    """(word columns per block, planes in shared memory?) of the walk on
+    a ``w``-word plane.
+
+    The word tile is the widest of 4 / 2 / 1 that still gives
+    ``MIN_BLOCKS`` blocks (1 when W is too narrow for that). The two
+    planes the sweeps alternate between stay in shared memory, with the
+    literals, at the widest tile up to that one where they fit the
+    budget; otherwise they are the output and a scratch plane in device
+    memory, at the first tile."""
+    budget = DEFAULT_SPEC.tile.smem_budget_bytes
+    tw = next(t for t in WORD_TILES if t == 1 or -(-w // t) >= MIN_BLOCKS)
+    for t in WORD_TILES[WORD_TILES.index(tw):]:
+        if walk_smem_bytes(n_pis, n_ands, t) <= budget:
+            return t, True
+    return tw, False
 
 
 def aig_sim_walk(pi_words: torch.Tensor, f0: torch.Tensor,
                  f1: torch.Tensor) -> torch.Tensor:
     """pi_words (n_pis, W) int32 packed samples; f0 / f1 (n_ands,) int32
-    fanin literals, each naming an earlier node (unchecked). Returns the
-    (1 + n_pis + n_ands, W) int32 value plane: row 0 const-0, rows
-    1..n_pis the inputs, then the AND nodes."""
+    fanin literals, each naming an earlier node (a literal of the node
+    itself or a later one reads 0, as in the reference; past the plane
+    unchecked). Returns the (1 + n_pis + n_ands, W) int32 value plane:
+    row 0 const-0, rows 1..n_pis the inputs, then the AND nodes;
+    ``plan_walk`` sizes the launch."""
     dev = pi_words.device
     check_int32("pi_words", pi_words, dev, 2)
     check_int32("f0", f0, dev, 1)
@@ -56,9 +105,12 @@ def aig_sim_walk(pi_words: torch.Tensor, f0: torch.Tensor,
     check_int32("plane", out, dev, 2)
     if w == 0:
         return out
+    tw, smem_plane = plan_walk(n_pis, n_ands, w)
+    scratch = None if smem_plane else torch.empty_like(out)
     err = build.library().aig_sim_launch(
         pi_words.data_ptr(), f0.data_ptr(), f1.data_ptr(), out.data_ptr(),
-        n_pis, n_ands, w, stream_of(dev))
+        None if scratch is None else scratch.data_ptr(), n_pis, n_ands, w,
+        tw, stream_of(dev))
     build.check(err, "aig_sim")
     aig_sim_walk.launches += 1
     return out

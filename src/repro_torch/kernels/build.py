@@ -37,7 +37,7 @@ SIGNATURES = {
     "lut_eval_launch": [_P] * 5 + [_I] * 9 + [_P],
     "lut_eval_streamed_launch": [_P] * 6 + [_I] * 10 + [_P],
     "lut_layer_launch": [_P] * 4 + [_I] * 9 + [_P],
-    "aig_sim_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "aig_sim_launch": [_P] * 5 + [_I] * 4 + [_P],
     "xnor_popcount_launch": [_P] * 3 + [_I] * 4 + [_P],
     "fanin_matmul_launch": [_P] * 5 + [_I] * 4 + [_P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P],

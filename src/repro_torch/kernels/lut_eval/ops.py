@@ -176,7 +176,9 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     contiguous on one device. Leaves must be wires of earlier levels
     and pad slots must write the dump row with zero masks (as
     ``compile_device_plan`` builds them); ``plan_stacked`` sizes the
-    launch."""
+    launch. The masks may sit at any 4-byte address: the kernel copies
+    them to shared memory as 16-byte copies where aligned, else word by
+    word."""
     dev = pi_words.device
     check_int32("pi_words", pi_words, dev, 2)
     check_int32("leaf_idx", leaf_idx, dev, 3)
@@ -200,10 +202,6 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     check_int32("plane", out, dev, 2)
     if w == 0:
         return out
-    if tt_bits.data_ptr() % min(16, 4 << k):
-        raise ValueError("tt_bits: the kernel stages each slot's INIT "
-                         f"masks as {min(16, 4 << k)}-byte copies; its "
-                         "data is not aligned to that")
     kk = k if n_levels else 1
     bw, use_smem, chunk = plan_stacked(n_wires + 1, w, n_levels, lw, kk,
                                        spec or DEFAULT_SPEC)

@@ -5,6 +5,10 @@ the output and launches the kernel on torch's current stream for CUDA
 tensors, or runs the plain version (``ref.py``) for CPU tensors; it
 counts its launches in ``.launches``. ``xnor_matmul`` is the reference's
 public entry: it packs +-1 operands with ``pack_bipolar`` first.
+
+The kernel runs the products on the binary tensor cores in 32 x 16
+output tiles, one block each over a one-dimensional grid, so B and N
+have no limit beyond int32 indexing.
 """
 from __future__ import annotations
 
@@ -14,8 +18,13 @@ from .. import build
 from ..common import check_int32, require_cuda, stream_of
 from .ref import WORD_BITS, pack_bipolar, xnor_popcount_ref
 
-TILE = 32              # output rows and neurons per block
-MAX_GRID_Y = 65_535
+
+def loads_vectorized(x_packed: torch.Tensor, w_packed: torch.Tensor) -> bool:
+    """Whether the kernel loads the operands as 16-byte vectors (rows of
+    a multiple of 4 words at 16-byte aligned addresses) or word by
+    word."""
+    return (x_packed.shape[1] % 4 == 0 and x_packed.data_ptr() % 16 == 0
+            and w_packed.data_ptr() % 16 == 0)
 
 
 def xnor_matmul_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
@@ -39,8 +48,6 @@ def xnor_matmul_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
     check_int32("out", out, dev, 2)
     if b == 0 or n == 0:
         return out
-    if -(-b // TILE) > MAX_GRID_Y:
-        raise ValueError(f"batch of {b} rows exceeds the kernel's grid")
     err = build.library().xnor_popcount_launch(
         x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), b, n, w,
         n_features, stream_of(dev))

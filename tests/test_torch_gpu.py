@@ -11,7 +11,8 @@ import torch
 
 from repro_torch import synth
 from repro_torch.device import NoCudaDeviceError
-from repro_torch.kernels.aig_sim import aig_sim, aig_sim_ref, aig_sim_walk
+from repro_torch.kernels.aig_sim import (aig_sim, aig_sim_ref, aig_sim_walk,
+                                         max_sweeps, plan_walk)
 from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval, lut_eval_ref,
@@ -26,6 +27,7 @@ from repro_torch.kernels.lut_layer import lut_layer, lut_layer_ref, plan_layer
 from repro_torch.kernels.xnor_popcount import (pack_bipolar,
                                                xnor_matmul_packed,
                                                xnor_popcount_ref)
+from repro_torch.kernels.xnor_popcount.ops import loads_vectorized
 from repro_torch.synth.from_sop import table_to_aig
 
 pytestmark = pytest.mark.gpu
@@ -196,20 +198,54 @@ def test_lut_eval_stacked_branches_match_plain(cuda_device, k, mode):
             out, synth.execute_packed(mapped, host_words))
 
 
-def test_lut_eval_refuses_misaligned_masks(cuda_device, mapped):
-    """The monolithic walk reads each slot's INIT masks as 16-byte
-    vectors; masks at an address off that alignment are refused."""
-    dp = synth.compile_device_plan(mapped)
-    words = _i32(synth.random_words(mapped.n_pis, 3, seed=1), cuda_device)
+def misaligned(t):
+    """A copy of ``t`` one int32 past a 16-byte aligned address."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = (4 - buf.data_ptr() % 16 // 4 + 1) % 4
+    out = buf[off: off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("mode", ["staged", "streamed", "device"])
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6])
+def test_lut_eval_takes_misaligned_masks(cuda_device, k, mode):
+    """INIT masks one int32 past an aligned address, which the monolithic
+    walk once refused, are taken by both walks on each plan branch and
+    give the plain version's plane bit for bit: every mask read goes
+    through the copy into shared memory, which copies word by word
+    from a misaligned source."""
+    mapped = random_netlist(k, k)
+    plan = _compile_plan(mapped)
+    dp = synth.compile_device_plan(mapped, plan)
+    tp = synth.compile_tile_plan(plan, mapped.n_pis, k, 8)
+    ls = level_starts(tp.level_of_tile)
+    n_levels, lw = dp.out_wires.shape
+    words = _i32(synth.random_words(mapped.n_pis, 7, seed=k), cuda_device)
     leaf, tt, ow = (_i32(a, cuda_device) for a in (dp.leaf_idx, dp.tt_bits,
                                                    dp.out_wires))
-    shifted = torch.empty(tt.numel() + 1, dtype=torch.int32,
-                          device=cuda_device)[1:].view(tt.shape)
-    shifted.copy_(tt)
-    with pytest.raises(ValueError, match="aligned"):
-        lut_eval(words, leaf, shifted, ow, n_wires=dp.n_wires)
-    assert torch.equal(lut_eval(words, leaf, tt, ow, n_wires=dp.n_wires),
-                       lut_eval_ref(words, leaf, tt, ow, n_wires=dp.n_wires))
+    spec = stacked_budget(mode, dp.n_wires + 1, n_levels, lw, k)
+    _, smem, chunk = plan_stacked(dp.n_wires + 1, 7, n_levels, lw, k, spec)
+    assert (chunk >= n_levels * lw, smem) == (mode == "staged",
+                                              mode != "device")
+    got = lut_eval(words, leaf, misaligned(tt), ow, n_wires=dp.n_wires,
+                   spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_eval_ref(words, leaf, tt, ow,
+                                         n_wires=dp.n_wires))
+    targs = [_i32(a, cuda_device) for a in (
+        tp.tt_tiles, tp.leaf_tiles, tp.out_base, ls)]
+    n_tiles = tp.out_base.shape[0]
+    spec = plan_budget(mode, ls.shape[0] - 1, n_tiles, 8, k)
+    _, smem, chunk = plan_streamed(tp.n_rows, 7, ls.shape[0] - 1, n_tiles,
+                                   8, k, spec)
+    assert (chunk >= n_tiles, smem) == (mode == "staged", mode != "device")
+    got = lut_eval_streamed(words, misaligned(targs[0]), *targs[1:],
+                            n_rows=tp.n_rows, spec=spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lut_eval_streamed_ref(words, *targs,
+                                                  n_rows=tp.n_rows))
 
 
 @pytest.mark.parametrize("B,n_in,N,K,L", [
@@ -305,32 +341,135 @@ def chain_literals(seed, n_pis, n_ands):
             (rng.random(n_ands) * hi).astype(np.int32))
 
 
-@pytest.mark.parametrize("n_words", [7, 200])
-def test_aig_sim_walk_from_device_memory(cuda_device, n_words):
-    """A 2,500-AND plane (2,517 rows) does not fit shared memory at 32
-    words per block: the walk reads and writes the plane in device
-    memory."""
-    f0, f1 = chain_literals(n_words, 16, 2500)
-    words = synth.random_words(16, n_words, seed=n_words)
-    args = [_i32(a, cuda_device) for a in (words, f0, f1)]
+def forward_literals(seed, n_pis, n_ands):
+    """f0, f1 of random literals anywhere in the plane: about half name
+    the node itself or a later one, which read 0."""
+    rng = np.random.default_rng(seed)
+    n_rows = 1 + n_pis + n_ands
+    return tuple(rng.integers(0, 2 * n_rows, n_ands).astype(np.int32)
+                 for _ in range(2))
+
+
+def strict_chain(seed, n_pis, n_ands):
+    """Node i ANDs node i - 1 (the last input for node 0) with a random
+    earlier literal: depth n_ands, but values that settle early."""
+    rng = np.random.default_rng(seed)
+    prev = 2 * (n_pis + np.arange(n_ands)) + rng.integers(0, 2, n_ands)
+    hi = 2 * (1 + n_pis + np.arange(n_ands))
+    return prev.astype(np.int32), (rng.random(n_ands) * hi).astype(np.int32)
+
+
+def toggling_chain(n_pis, n_ands):
+    """Node i is NOT node i - 1 (the last input for node 0), ANDed with
+    the constant 1: every sweep before the n_ands-th changes a row."""
+    prev = 2 * (n_pis + np.arange(n_ands)) + 1
+    return prev.astype(np.int32), np.ones(n_ands, np.int32)
+
+
+def _walk_check(device, f0, f1, n_pis, n_words):
+    """The walk on the card against its plain version (on the CPU), bit
+    for bit; returns the plan it ran."""
+    words = synth.random_words(n_pis, n_words, seed=n_words)
+    host = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+            for a in (words, f0, f1)]
     launches = aig_sim_walk.launches
-    got = aig_sim_walk(*args)
+    got = aig_sim_walk(*(t.to(device) for t in host))
     torch.cuda.synchronize()
     assert aig_sim_walk.launches == launches + 1
-    assert torch.equal(got, aig_sim_ref(*args, 16))
+    assert torch.equal(got.cpu(), aig_sim_ref(*host, n_pis))
+    return plan_walk(n_pis, len(f0), n_words)
 
 
-@pytest.mark.parametrize("B,n,N", [(256, 4096, 256), (37, 100, 70)])
+@pytest.mark.parametrize("n_words", [7, 200])
+def test_aig_sim_walk_from_device_memory(cuda_device, n_words):
+    """A 60,000-AND plane (60,017 rows) does not fit shared memory even
+    one word wide: the sweeps alternate between the output and a
+    scratch plane in device memory."""
+    f0, f1 = chain_literals(n_words, 16, 60_000)
+    assert not _walk_check(cuda_device, f0, f1, 16, n_words)[1]
+
+
+@pytest.mark.parametrize("n_words,tw", [
+    (1, 1), (3, 1), (254, 1), (255, 2), (256, 2), (508, 2), (509, 4),
+    (511, 4), (1026, 4)])
+def test_aig_sim_walk_at_tile_edges(cuda_device, n_words, tw):
+    """The bench-sized AIG (8 inputs, about 600 ANDs) at W on either
+    side of each word-tile width's threshold and with ragged last
+    tiles."""
+    rng = np.random.default_rng(n_words)
+    aig = synth.AIG(8)
+    aig.outputs = [table_to_aig(aig, rng.random(256) < 0.5, None,
+                                [2 * (i + 1) for i in range(8)])
+                   for _ in range(4)]
+    f0, f1 = aig.fanin_arrays()
+    assert _walk_check(cuda_device, f0, f1, 8, n_words) == (tw, True)
+
+
+@pytest.mark.parametrize("n_words", [1, 33])
+@pytest.mark.parametrize("n_ands", [40, 3000])
+def test_aig_sim_walk_forward_literals_read_zero(cuda_device, n_words,
+                                                 n_ands):
+    """Literals of the node itself or a later one read 0 (then the
+    complement), as in the plain version, and do not hang the card."""
+    f0, f1 = forward_literals(n_ands, 5, n_ands)
+    _walk_check(cuda_device, f0, f1, 5, n_words)
+
+
+@pytest.mark.parametrize("n_words", [1, 200])
+def test_aig_sim_walk_strict_chain(cuda_device, n_words):
+    """A chain of 2,500 ANDs, depth 2,500, each node ANDed with a random
+    earlier literal: its values settle long before its end, so the
+    sweeps stop early."""
+    f0, f1 = strict_chain(n_words, 16, 2500)
+    _walk_check(cuda_device, f0, f1, 16, n_words)
+
+
+@pytest.mark.parametrize("n_ands,n_words,in_smem", [
+    (2500, 1, True), (2500, 200, True), (60_000, 3, False)])
+def test_aig_sim_walk_toggling_chain(cuda_device, n_ands, n_words, in_smem):
+    """A chain of inverters, depth n_ands, whose values change in every
+    sweep: the sweeps reach their cap and the block finishes the walk in
+    node order, with the planes in shared and in device memory."""
+    f0, f1 = toggling_chain(16, n_ands)
+    assert n_ands > max_sweeps(n_ands)
+    assert _walk_check(cuda_device, f0, f1, 16, n_words)[1] == in_smem
+
+
+XNOR_SHAPES = [(256, 4096, 256), (37, 100, 70), (17, 257, 9),
+               (33, 1000, 65), (64, 4096, 24), (1, 7, 1), (300, 1000, 33)]
+
+
+@pytest.mark.parametrize("B,n,N", XNOR_SHAPES)
 def test_xnor_kernel_matches_plain(cuda_device, B, n, N):
+    """The bench shape and shapes that cross the kernel's 32 x 16 output
+    tiles, its 16-word slabs and a word (pad bits), with zeros (which
+    pack as -1); rows of a multiple of 4 words load as 16-byte vectors,
+    the others word by word."""
     rng = np.random.default_rng(B)
     x, w = (torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], s)
                              .astype(np.float32)).to(cuda_device)
             for s in ((B, n), (N, n)))
     xp, wp = pack_bipolar(x), pack_bipolar(w)
+    assert loads_vectorized(xp, wp) == (xp.shape[1] % 4 == 0)
     launches = xnor_matmul_packed.launches
     got = xnor_matmul_packed(xp, wp, n)
     torch.cuda.synchronize()
     assert xnor_matmul_packed.launches == launches + 1
+    assert torch.equal(got, xnor_popcount_ref(xp, wp, n))
+
+
+@pytest.mark.parametrize("B,n,N", [(33, 1000, 65), (64, 4000, 24)])
+def test_xnor_kernel_counts_every_bit_as_the_plain_version(cuda_device, B, n,
+                                                           N):
+    """Packed words with their pad bits set (outside ``pack_bipolar``'s
+    contract): the kernel counts every bit of every word, as the plain
+    version does."""
+    rng = np.random.default_rng(n)
+    xp, wp = (torch.from_numpy(rng.integers(0, 1 << 32, (r, -(-n // 32)),
+                                            dtype=np.uint32).view(np.int32))
+              .to(cuda_device) for r in (B, N))
+    got = xnor_matmul_packed(xp, wp, n)
+    torch.cuda.synchronize()
     assert torch.equal(got, xnor_popcount_ref(xp, wp, n))
 
 

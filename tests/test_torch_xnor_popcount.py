@@ -21,7 +21,11 @@ def _bipolar(rng, shape, zeros=True):
 
 
 @pytest.mark.parametrize("B,n,N", [(8, 32, 16), (17, 100, 33), (1, 7, 1),
-                                   (40, 129, 250), (3, 64, 5)])
+                                   (40, 129, 250), (3, 64, 5),
+                                   # across the kernel's 32 x 16 tiles,
+                                   # 16-word slabs and the word
+                                   (17, 257, 9), (33, 1000, 65),
+                                   (64, 4096, 24)])
 @pytest.mark.parametrize("zeros", [False, True])
 def test_xnor_matmul_matches_reference_kernel(B, n, N, zeros):
     rng = np.random.default_rng(n + B)
@@ -88,3 +92,35 @@ def test_wrapper_rejects_bad_operands():
         xnor_matmul_packed(xp, xp, 97)
     with pytest.raises(ValueError):
         xnor_matmul(torch.ones(2, 5), torch.ones(2, 6))
+
+
+@pytest.mark.parametrize("n,vec", [(4096, True), (4000, False),
+                                   (100, True), (257, False)])
+def test_loads_are_vectorized_for_rows_of_whole_16_bytes(n, vec):
+    """Rows of a multiple of 4 words at 16-byte aligned addresses load as
+    16-byte vectors; the kernel loads the others word by word."""
+    from repro_torch.kernels.xnor_popcount.ops import loads_vectorized
+    x = pack_bipolar(torch.ones(3, n))
+    assert loads_vectorized(x, x) == vec
+    shifted = torch.zeros(x.numel() + 1, dtype=torch.int32)[1:].view(x.shape)
+    assert not loads_vectorized(shifted, x)
+
+
+@pytest.mark.parametrize("op", ["b1.and.popc", "b1.xor.popc", "s8"])
+def test_mma_probe_expected_values(op):
+    """The probe's host-side expectation of one mma instruction, against
+    a bit-by-bit count."""
+    from repro_torch.bench.mma_probe import _expected
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 1 << 32, (16, 8), dtype=np.uint32)
+    w = rng.integers(0, 1 << 32, (8, 8), dtype=np.uint32)
+    want = np.zeros((16, 8), np.int64)
+    for m in range(16):
+        for n in range(8):
+            if op == "s8":
+                want[m, n] = int((x[m].view(np.int8).astype(np.int64)
+                                  * w[n].view(np.int8)).sum())
+            else:
+                both = x[m] & w[n] if op == "b1.and.popc" else x[m] ^ w[n]
+                want[m, n] = sum(bin(int(v)).count("1") for v in both)
+    np.testing.assert_array_equal(_expected(op, x, w), want)
