@@ -7,9 +7,10 @@ Phases, each printing its own lines:
   1. card     — ``nvidia-smi`` name and power limit, torch's device name;
   2. build    — compiles ``src/repro_torch/csrc/*.cu`` with nvcc for
                 sm_90a (seconds, and each kernel's registers and stack
-                frame); no lut_eval walk, aig_sim or xnor_popcount
-                instance may keep a stack or spill, and xnor_popcount's
-                SASS must hold binary tensor-core mma (BMMA);
+                frame); no lut_eval walk, aig_sim, xnor_popcount or
+                fanin_matmul instance may keep a stack or spill, and
+                xnor_popcount's SASS must hold binary tensor-core mma
+                (BMMA);
      probe    — ``repro_torch.bench.mma_probe``: which binary and int8
                 mma forms ptxas takes for sm_90a, one instruction of
                 each against numpy, and each one's rate;
@@ -56,8 +57,12 @@ Phases, each printing its own lines:
                 chains of inverters that run the sweeps to their cap and
                 finish in node order, in shared and device memory; xnor
                 with zeros, ragged B, N and n across its tiles and slabs,
-                both of its load paths, and pad bits set),
-                fanin_matmul within 1e-5 of max(1, |y|) and
+                both of its load paths, and pad bits set), fanin_matmul
+                bit for bit with NaN positions compared, in float32,
+                bf16 and f16, on indices that wrap and indices out of
+                range, on each branch of ``plan_fanin`` (1 and 2 rows a
+                block, staged in shared memory, and too wide to stage,
+                n_in 60,000 and 120,000, in device memory), and
                 flash_attention within 2e-4 in float32 (TF32 off in the
                 plain version) and 2e-2 in bfloat16 (the reference
                 test's tolerances): bench, window, ragged, GQA and fully
@@ -71,15 +76,19 @@ Phases, each printing its own lines:
                 plain version, its bound, the library call that computes
                 the same function (the faster of ``torch._int_mm`` of the
                 int8 +-1 operands and the TF32 ``torch.matmul`` of the
-                float ones, both exact; the masked dense product in
-                float32; ``scaled_dot_product_attention``) and its device
+                float ones, both exact; for fanin_matmul the fastest on
+                the device of the masked dense product, ``torch.sparse.mm``
+                of w as CSR with x^T and ``embedding_bag`` over x^T;
+                ``scaled_dot_product_attention``) and its device
                 time per launch and the library calls' device time per
                 call (``torch.profiler``); beside them the aig_sim walk
                 on a strict chain and a chain of inverters of 2,500 ANDs
-                each, and a bfloat16 row of flash_attention at the bench
-                shape, with SDPA on the bf16 operands as its library
-                call. xnor's bound counts its bit products at the rate
-                the probe measured for b1 ``and.popc`` in this run.
+                each, fanin_matmul at 1 and 2 rows a block and with
+                its parts left out (no fanin terms; rows of 32 inputs), and
+                bfloat16 rows of fanin_matmul and flash_attention at the
+                bench shape, with the same library calls on the bf16
+                operands. xnor's bound counts its bit products at the
+                rate the probe measured for b1 ``and.popc`` in this run.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -90,8 +99,9 @@ those lines. Without a CUDA device, or without the repository's
 
 prints instead one JSON line of device times per launch (the
 profiler's, back to back) of the aig_sim walk on the bench AIG, the
-strict chain and the chain of inverters, and of xnor_popcount at the
-bench shape, each first held to its plain version, for the port beside
+strict chain and the chain of inverters, and of xnor_popcount and
+fanin_matmul (float32) at the bench shape, each first held to its
+plain version, for the port beside
 the script: a copy of this file in an older checkout times that
 checkout's kernels through the same wrappers, so two checkouts compare
 in one run on one card.
@@ -189,6 +199,18 @@ def device_us(fn, kernel, n: int = 20):
     return (us / launches if launches else None), launches
 
 
+def device_us_seen(fn, kernel, n: int = 10):
+    """``device_us``, repeated up to three times until the profiler sees
+    a launch (a session now and then sees none); fails if it never
+    does."""
+    for _ in range(3):
+        us, launches = device_us(fn, kernel, n)
+        if launches:
+            return us, launches
+    raise SmokeFailure(f"the profiler saw no {kernel or 'kernel'} in three "
+                       "sessions")
+
+
 @contextlib.contextmanager
 def tf32(enabled: bool):
     """TF32 matmuls on or off inside the block, as they were after."""
@@ -220,6 +242,42 @@ def check(errs, name, got, want, what):
     errs[name] = max(errs.get(name, 0), err)
     require(torch.equal(got, want), f"{name} {what}: differs from its "
             f"plain version (max abs err {err})")
+
+
+def check_nan_equal(errs, name, got, want, what):
+    """Bit-exact comparison of a float kernel's output with its plain
+    version's, NaN positions included; records the max abs error of the
+    other entries under ``name``."""
+    import torch
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {what}: {got.shape}/{got.dtype} vs "
+            f"{want.shape}/{want.dtype}")
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan),
+            f"{name} {what}: NaN positions differ from its plain version")
+    diff = (got[~nan].float() - want[~nan].float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    require(torch.equal(got[~nan], want[~nan]), f"{name} {what}: differs "
+            f"from its plain version (max abs err {err})")
+
+
+def fanin_operands(rng, B, n_in, N, K, dtype, device):
+    """Seeded fanin_matmul operands in ``dtype``: a third of the indices
+    in [-n_in, 0) (they wrap) and, where N allows, four out of range
+    (n_in, -n_in - 1, 2^30, -2^31: NaN outputs)."""
+    import torch
+    idx = rng.integers(0, n_in, (N, K)).astype("int32")
+    idx[::3] -= n_in
+    if N >= 8 and K > 0:
+        rows = rng.choice(N, size=4, replace=False)
+        idx[rows, rng.integers(0, K, 4)] = [n_in, -n_in - 1, 1 << 30,
+                                            -(1 << 31)]
+    x, w, bias = (torch.from_numpy(rng.normal(size=s).astype("float32"))
+                  .to(device=device, dtype=dtype)
+                  for s in ((B, n_in), (N, K), (N,)))
+    return x, torch.from_numpy(idx).to(device), w, bias
 
 
 def misaligned(t):
@@ -404,6 +462,8 @@ def kernel_name(symbol: str) -> str:
     args, rest = [], m.group(2) or ""
     if rest.startswith("I13__nv_bfloat16"):
         args.append("bf16")
+    elif rest.startswith("I6__half"):
+        args.append("f16")
     elif rest.startswith("If"):
         args.append("float")
     args += [v if kind == "i" else ("smem" if v == "1" else "global")
@@ -452,7 +512,9 @@ def phase_build():
     for kernel, count, what in (
             ("aig_sim", 6, "1, 2 or 4 word columns a block, planes in "
              "shared or device memory"),
-            ("xnor_popcount", 1, "one instance")):
+            ("xnor_popcount", 1, "one instance"),
+            ("fanin_matmul", 12, "float32 / bf16 / f16 x 1 or 2 rows a "
+             "block x rows in shared or device memory")):
         found = [(n, st) for n, _, st in report if kernel in n]
         require(len(found) == count, f"ptxas reported {len(found)} {kernel} "
                 f"kernels, expected {count} ({what})")
@@ -980,6 +1042,7 @@ def phase_kernels2(torch, errs):
     from repro_torch.bench.kernels_bench import FULL, make_inputs
     from repro_torch.kernels.aig_sim import aig_sim
     from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
+    from repro_torch.kernels.fanin_matmul.ops import plan_fanin
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.lut_eval import (lut_eval, lut_eval_ref,
@@ -1102,22 +1165,38 @@ def phase_kernels2(torch, errs):
           f"{len(xshapes)} shapes, 16-byte and word-by-word loads (== the "
           "float oracle on +-1 inputs), and with pad bits set")
 
-    fshapes = [(256, 4096, 1024, 8), (70, 33, 45, 3), (129, 1000, 257, 5)]
-    for (B, n_in, N, K) in fshapes:
-        if (B, n_in, N, K) == (256, 4096, 1024, 8):
-            f = inp.fanin
-            x, idx, w, bias = f.x, f.idx, f.w, f.bias
-        else:
-            x = t(rng.normal(size=(B, n_in)), torch.float32)
-            idx = t(rng.integers(0, n_in, (N, K)))
-            w = t(rng.normal(size=(N, K)), torch.float32)
-            bias = t(rng.normal(size=(N,)), torch.float32)
-        with tf32(False):
-            want = fanin_matmul_ref(x, idx, w, bias)
-        check_close(errs, "fanin_matmul", fanin_matmul(x, idx, w, bias),
-                    want, 1e-5, f"{(B, n_in, N, K)}", relative=True)
-    print(f"[kernels2] fanin_matmul within 1e-5 of plain on "
-          f"{len(fshapes)} shapes")
+    # fanin_matmul bit for bit in each type, NaN positions included, on
+    # both branches of plan_fanin: rows staged in shared memory (1 and 2
+    # a block, neurons split over blocks, several neurons a thread) and
+    # rows too wide to stage (n_in 60,000 in float32, 120,000 in every
+    # type; 1 and 2 a block), indices that wrap and indices out of
+    # range; the bench's own inputs first
+    fshapes = [(256, 4096, 1024, 8), (70, 33, 45, 3), (8, 4096, 1024, 8),
+               (129, 1001, 257, 13), (513, 2000, 3000, 5),
+               (9, 500, 37, 300), (5, 60_000, 70, 9), (300, 60_000, 33, 4),
+               (3, 120_000, 40, 4), (300, 120_000, 20, 3)]
+    branches = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for (B, n_in, N, K) in fshapes:
+            if (B, n_in, N, K) == fshapes[0] and dtype == torch.float32:
+                f = inp.fanin
+                x, idx, w, bias = f.x, f.idx, f.w, f.bias
+            else:
+                x, idx, w, bias = fanin_operands(rng, B, n_in, N, K, dtype,
+                                                 dev)
+            plan = plan_fanin(B, n_in, N, dtype)
+            branches.setdefault(dtype, set()).add((plan.staged, plan.rows))
+            check_nan_equal(errs, "fanin_matmul", fanin_matmul(x, idx, w, bias),
+                            fanin_matmul_ref(x, idx, w, bias),
+                            f"{dtype} {(B, n_in, N, K)}")
+    for dtype, seen in branches.items():
+        require(seen == {(True, 1), (True, 2), (False, 1), (False, 2)},
+                f"fanin_matmul {dtype}: branches reached {sorted(seen)}, "
+                "expected 1 and 2 rows a block, staged and in device memory")
+    print(f"[kernels2] fanin_matmul == plain (NaN positions included) in "
+          f"float32 / bf16 / f16 on {len(fshapes)} shapes each: 1 and 2 rows "
+          "a block, staged and in device memory, wrapped and out-of-range "
+          "indices")
 
     # bench, window, ragged / GQA, Sq != Sk, dh 128, fully masked rows;
     # then the 16 template (dh 8) and the K / V copy widths (dh 6, 5, 7,
@@ -1179,9 +1258,10 @@ def phase_bench(torch):
 def kernel_time_fns(torch, inp, errs):
     """label -> (function, kernel symbol) of the kernel times: the
     aig_sim walk on the bench AIG, on a strict chain and on a chain of
-    inverters of 2,500 ANDs each at the bench's width, and xnor_popcount
-    at the bench shape, each first held to its plain version. Only
-    wrappers whose signatures every checkout of the port shares."""
+    inverters of 2,500 ANDs each at the bench's width, xnor_popcount and
+    fanin_matmul (float32) at the bench shape, each first held to its
+    plain version. Only wrappers whose signatures every checkout of the
+    port shares."""
     import numpy as np
     from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
     from repro_torch.kernels.xnor_popcount import (pack_bipolar,
@@ -1210,6 +1290,14 @@ def kernel_time_fns(torch, inp, errs):
     fns["xnor_popcount bench"] = (
         lambda: xnor_matmul_packed(xp, wp, x.shape[1]),
         "xnor_popcount_kernel")
+    from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
+    f = inp.fanin
+    got = fanin_matmul(f.x, f.idx, f.w, f.bias)
+    torch.cuda.synchronize()
+    require(torch.equal(got, fanin_matmul_ref(f.x, f.idx, f.w, f.bias)),
+            "fanin_matmul bench (timing): differs from its plain version")
+    fns["fanin_matmul bench"] = (
+        lambda: fanin_matmul(f.x, f.idx, f.w, f.bias), "fanin_matmul_kernel")
     return fns
 
 
@@ -1221,9 +1309,7 @@ def phase_kernel_times(torch, card):
     inp = make_inputs(torch.device("cuda"), FULL)
     res = {"package": os.path.dirname(repro_torch.__file__), "card": card}
     for label, (fn, symbol) in kernel_time_fns(torch, inp, {}).items():
-        us, n = device_us(fn, symbol, 10)
-        require(n > 0, f"{label}: the profiler saw no {symbol}")
-        res[f"{label} device us"] = us
+        res[f"{label} device us"] = device_us_seen(fn, symbol)[0]
     print(json.dumps(res))
 
 
@@ -1240,6 +1326,9 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     from repro_torch.kernels.fanin_matmul import (dense_equivalent,
                                                   fanin_matmul,
                                                   fanin_matmul_ref)
+    from repro_torch.kernels.fanin_matmul.ops import (FaninPlan, launch_plan,
+                                                      plan_fanin,
+                                                      staged_bytes)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.xnor_popcount import (pack_bipolar,
@@ -1324,24 +1413,124 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
           f"{INT8_OPS_PER_S / 1e12:.0f}) "
           f"on {card}")
 
+    # fanin_matmul beside the PyTorch calls that compute its function:
+    # the masked dense product, the CSR product (w as (N, n_in)) with
+    # x^T, and embedding_bag over the columns of x (its table x^T made
+    # once, outside the timed call); each first held to the kernel (TF32
+    # off). The bench's bias is 0, so the two calls without a bias
+    # compute all of it. The row takes the fastest on the device.
     f = inp.fanin
     B, n_in = f.x.shape
     N, K = f.idx.shape
-    w_dense = torch.zeros((N, n_in), dtype=torch.float32, device=f.x.device)
-    w_dense.scatter_add_(1, f.idx.long(), f.w)
     n_cols = int(torch.unique(f.idx).numel())
-    dense = lambda: dense_equivalent(f.x, w_dense, f.bias)  # noqa: E731
-    lib_fns["fanin_matmul dense product"] = (dense, False)
+    require(not f.bias.any(), "the bench's fanin bias is not 0")
+
+    def fanin_libs(x, w, bias):
+        w_dense = torch.zeros((N, n_in), dtype=x.dtype, device=x.device)
+        w_dense.scatter_add_(1, f.idx.long(), w)
+        crow = torch.arange(0, N * K + 1, K, device=x.device)
+        w_csr = torch.sparse_csr_tensor(crow, f.idx.long().flatten(),
+                                        w.flatten(), (N, n_in))
+        table = x.T.contiguous()
+        return {"dense product": lambda: dense_equivalent(x, w_dense, bias),
+                "sparse.mm CSR": lambda: torch.sparse.mm(w_csr, x.T),
+                "embedding_bag": lambda: F.embedding_bag(
+                    f.idx, table, per_sample_weights=w, mode="sum")}
+
+    def fanin_lib_row(label, x, w, bias, tol_of):
+        """(ms, device us, name) of the fastest library call on the
+        device, after holding each to the kernel within ``tol_of(got)``
+        of max(1, |y|); a call this torch refuses is printed and
+        skipped."""
+        got = fanin_matmul(x, f.idx, w, bias)
+        best = None
+        for name, fn in fanin_libs(x, w, bias).items():
+            try:
+                with tf32(False):
+                    y = fn()
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"[timing2] {label} library {name} refused: "
+                      f"{str(e).splitlines()[0][:120]}")
+                continue
+            y = y if name == "dense product" else y.T
+            check_close({}, "fanin_matmul", y.to(got.dtype), got,
+                        tol_of(got), f"{label} against the {name}",
+                        relative=True)
+            with tf32(False):
+                per_launch, n = device_us_seen(fn, None)
+                ms = time_ms(fn)
+            dev_us = per_launch * n / 10           # every kernel of a call
+            print(f"[timing2] {label} library {name}: {ms:.5f} ms, device "
+                  f"{dev_us:.2f} us per call ({n / 10:g} kernels) on {card}")
+            if best is None or dev_us < best[1]:
+                best = (ms, dev_us, name)
+        require(best is not None, f"{label}: no library call ran")
+        return best
+
+    lib_ms, _, lib_name = fanin_lib_row("fanin_matmul", f.x, f.w, f.bias,
+                                        lambda got: 1e-4)
+    print(f"[timing2] fanin_matmul library: {lib_name}, the fastest on "
+          f"the device")
+    fanin_bytes = (4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N)
     with tf32(False):
-        check_close({}, "fanin_matmul",
-                    dense_equivalent(f.x, w_dense, f.bias),
-                    fanin_matmul(f.x, f.idx, f.w, f.bias), 1e-4,
-                    "against the masked dense product", relative=True)
         row("fanin_matmul", lambda: fanin_matmul(f.x, f.idx, f.w, f.bias),
-            lambda: fanin_matmul_ref(f.x, f.idx, f.w, f.bias),
-            time_ms(dense),
-            4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N,
-            2 * B * N * K + B * N, F32_OPS_PER_S)
+            lambda: fanin_matmul_ref(f.x, f.idx, f.w, f.bias), lib_ms,
+            fanin_bytes, 2 * B * N * K + B * N, F32_OPS_PER_S)
+    # the kernel at 1 and 2 rows a block (all neurons a block) beside the
+    # plan's own choice, on the bench's inputs
+    plan = plan_fanin(B, n_in, N, torch.float32)
+    for n_rows in (1, 2):
+        alt = FaninPlan(True, n_rows, N,
+                        staged_bytes(n_rows, n_in, torch.float32))
+        out = torch.empty((B, N), dtype=torch.float32, device=f.x.device)
+        got = launch_plan(f.x, f.idx, f.w, f.bias, out, alt)
+        check({}, "fanin_matmul", got.view(torch.int32),
+              fanin_matmul(f.x, f.idx, f.w, f.bias).view(torch.int32),
+              f"{n_rows} rows a block")
+        us, _ = device_us_seen(
+            lambda: launch_plan(f.x, f.idx, f.w, f.bias, out, alt),
+            "fanin_matmul_kernel")
+        print(f"[timing2] fanin_matmul at {n_rows} rows a block, "
+              f"{-(-B // n_rows)} blocks: device {us:.2f} us per launch"
+              + (" (the plan's)" if (n_rows, N) == (plan.rows, plan.span)
+                 else "") + f" on {card}")
+    # where the time goes: the bench launch without its fanin terms (the
+    # rows' copy and the output's stores), and with rows of 32 inputs
+    # (the terms' loads and the gathers, next to no rows to copy)
+    for label, (xs, ks) in (("K 0", (f.x, f.idx[:, :0].contiguous())),
+                            ("rows of 32 inputs",
+                             (f.x[:, :32].contiguous(), f.idx % 32))):
+        ws = f.w[:, :ks.shape[1]].contiguous()
+        check_nan_equal({}, "fanin_matmul", fanin_matmul(xs, ks, ws, f.bias),
+                        fanin_matmul_ref(xs, ks, ws, f.bias), label)
+        us, _ = device_us_seen(lambda: fanin_matmul(xs, ks, ws, f.bias),
+                               "fanin_matmul_kernel")
+        print(f"[timing2] fanin_matmul bench shape, {label}: device "
+              f"{us:.2f} us per launch on {card}")
+
+    # the bfloat16 row at the same shape (not on the bench path: its
+    # numbers are printed here, not in the kernels line). The library
+    # calls do not round each product to bf16 as the kernel does: within
+    # 2^-7 (sum |x w| + |y|) of it, over max(1, |y|)
+    xb, wb, bb = (t_.to(torch.bfloat16) for t_ in (f.x, f.w, f.bias))
+    mag = fanin_matmul_ref(xb.float().abs(), f.idx, wb.float().abs(),
+                           bb.float().abs())
+    got_b = fanin_matmul(xb, f.idx, wb, bb)
+    tol_b = float((2.0 ** -7 * (mag + got_b.float().abs())
+                   / got_b.float().abs().clamp(min=1.0)).max())
+    lib_b_ms, lib_b_us, lib_b_name = fanin_lib_row(
+        "fanin_matmul bf16", xb, wb, bb, lambda got: tol_b)
+    fanin_bf16 = lambda: fanin_matmul(xb, f.idx, wb, bb)  # noqa: E731
+    ms = time_ms(fanin_bf16)
+    plain_ms = time_ms(lambda: fanin_matmul_ref(xb, f.idx, wb, bb), iters=3,
+                       reps=3)
+    n_bytes = 2 * B * n_cols + nbytes(f.idx, wb, bb) + 2 * B * N
+    b_ms, b_by = bound(n_bytes, 2 * B * N * K + B * N, F32_OPS_PER_S)
+    print(f"[timing2] fanin_matmul bf16: {ms:.5f} ms (plain {plain_ms:.5f} "
+          f"ms; library {lib_b_name} {lib_b_ms:.5f} ms, device "
+          f"{lib_b_us:.2f} us; bound {b_ms:.7f} ms by {b_by}: {n_bytes} "
+          f"bytes; max abs err {errs.get('fanin_matmul', 0.0):.3g}) on "
+          f"{card}")
 
     q, k, v = inp.flash.q, inp.flash.k, inp.flash.v
     b, sq, h, dh = q.shape
@@ -1398,6 +1587,7 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     # device time per launch, one profiler session per kernel
     for name, fn in [*fns.items(),
                      *((k, fn) for k, (fn, _) in chains.items()),
+                     ("fanin_matmul bf16", fanin_bf16),
                      ("flash_attention bf16", bf16_fn)]:
         dev, n = device_us(fn, name.split()[0] + "_kernel", 10)
         print(f"[timing2] {name} kernel device time "

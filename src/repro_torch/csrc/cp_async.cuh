@@ -1,6 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) and
-// the dynamic shared-memory opt-in, shared by the lut_eval and lut_layer
-// kernels.
+// the dynamic shared-memory opt-in, shared by the lut_eval, lut_layer and
+// fanin_matmul (the opt-in) kernels.
 
 #pragma once
 

@@ -31,11 +31,6 @@ def check_int32(name: str, t: torch.Tensor, device: torch.device,
     check_tensor(name, t, device, ndim, torch.int32)
 
 
-def check_float32(name: str, t: torch.Tensor, device: torch.device,
-                  ndim: int) -> None:
-    check_tensor(name, t, device, ndim, torch.float32)
-
-
 def words_to_int32(words: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> the int32 view of the same 32 bits
     (torch has no uint32 arithmetic on CUDA; packed words travel as

@@ -7,15 +7,24 @@ import torch
 def fanin_matmul_ref(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """y[b, j] = sum_k x[b, idx[j, k]] * w[j, k] + bias[j] for x
-    (B, n_in), idx and w (N, K), bias (N,): the terms are added in the
-    kernel's order, k = 0 first and the bias last, each product
-    rounded before it is added."""
+    (B, n_in), idx and w (N, K), bias (N,), in the rounding of the
+    reference kernel: each product in the input type, the sum in float32
+    from k = 0 up, then the bias, then a cast to the input type.
+
+    Indices follow the reference kernel's gather: one in ``[-n_in, 0)``
+    reads column ``idx + n_in``; any other outside ``[0, n_in)`` gathers
+    a NaN, so its output is NaN whatever its weight."""
+    n_in = x.shape[1]
     cols = idx.long()
-    acc = torch.zeros((x.shape[0], idx.shape[0]), dtype=x.dtype,
+    cols = torch.where(cols < 0, cols + n_in, cols)
+    cols = torch.where((cols >= 0) & (cols < n_in), cols, n_in)
+    # the NaN column that every out-of-range index reads
+    xp = torch.cat([x, x.new_full((x.shape[0], 1), float("nan"))], dim=1)
+    acc = torch.zeros((x.shape[0], idx.shape[0]), dtype=torch.float32,
                       device=x.device)
     for k in range(idx.shape[1]):
-        acc = acc + x[:, cols[:, k]] * w[:, k]
-    return acc + bias
+        acc = acc + (xp[:, cols[:, k]] * w[:, k]).float()
+    return (acc + bias.float()).to(x.dtype)
 
 
 def dense_equivalent(x: torch.Tensor, w_dense: torch.Tensor,

@@ -1,8 +1,12 @@
 """repro_torch.kernels.fanin_matmul against repro.kernels.fanin_matmul on
 the same numpy inputs (rtol = atol = 1e-5, the reference test's
 tolerance), and against the dense product with FCP masks from the
-port's own ``core/fcp.py`` (1e-4)."""
+port's own ``core/fcp.py`` (1e-4); out-of-range indices and the
+bfloat16 / float16 types against the reference kernel (its NaN
+positions exactly, the values as each test states); ``plan_fanin``'s
+branches and bytes."""
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -13,6 +17,13 @@ from repro.kernels.fanin_matmul import fanin_matmul_ref as ref_oracle
 from repro_torch.core.fcp import fanin_indices, topk_row_mask
 from repro_torch.kernels.fanin_matmul import (dense_equivalent, fanin_matmul,
                                               fanin_matmul_ref)
+from repro_torch.kernels.fanin_matmul.ops import plan_fanin
+from repro_torch.kernels.spec import DEFAULT_SMEM_BUDGET
+
+# torch type -> (jax type, numpy type of the same values)
+TYPES = {torch.float32: (jnp.float32, np.float32),
+         torch.bfloat16: (jnp.bfloat16, ml_dtypes.bfloat16),
+         torch.float16: (jnp.float16, np.float16)}
 
 
 @pytest.mark.parametrize("B,n,N,K", [(8, 32, 16, 3), (19, 64, 40, 5),
@@ -75,3 +86,165 @@ def test_wrapper_rejects_bad_operands():
         fanin_matmul(x, idx, w, torch.zeros(4))
     with pytest.raises(ValueError):
         fanin_matmul(x, idx, torch.zeros((3, 3)), torch.zeros(3))
+
+
+def _operands(seed, B, n, N, K, wild):
+    """Seeded float32 operands; with ``wild``, indices in [-n, 0) and
+    outside [-n, n) (n, -n - 1, 2^30, -2^31) beside in-range ones."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, n)).astype(np.float32)
+    idx = rng.integers(0, n, (N, K)).astype(np.int32)
+    if wild:
+        idx[::3] -= n                                    # wraps
+        out_of_range = np.array([n, -n - 1, 1 << 30, -(1 << 31)], np.int32)
+        rows = rng.choice(N, size=4, replace=False)
+        idx[rows, rng.integers(0, K, 4)] = out_of_range
+    w = rng.normal(size=(N, K)).astype(np.float32)
+    bias = rng.normal(size=(N,)).astype(np.float32)
+    return x, idx, w, bias
+
+
+def _both(dtype, x, idx, w, bias):
+    """(port, reference kernel) outputs as float64 numpy arrays, the
+    floats first rounded to ``dtype``."""
+    jdt, _ = TYPES[dtype]
+    got = fanin_matmul(torch.from_numpy(x).to(dtype), torch.from_numpy(idx),
+                       torch.from_numpy(w).to(dtype),
+                       torch.from_numpy(bias).to(dtype))
+    assert got.dtype == dtype
+    want = ref_fanin(*(jnp.asarray(a).astype(jdt) for a in (x,)),
+                     jnp.asarray(idx),
+                     *(jnp.asarray(a).astype(jdt) for a in (w, bias)))
+    assert want.dtype == jdt
+    return (got.double().numpy(),
+            np.asarray(want.astype(jnp.float32)).astype(np.float64))
+
+
+def _source_rounding(dtype, x, idx, w, bias):
+    """numpy after the reference kernel's source (``fanin_matmul.py``):
+    each product in ``dtype``, the sum in float32 from k = 0, then the
+    bias, then a cast; out-of-range gathers NaN."""
+    _, ndt = TYPES[dtype]
+    n = x.shape[1]
+    xs = np.concatenate([x.astype(ndt), np.full((x.shape[0], 1), np.nan,
+                                                ndt)], axis=1)
+    cols = np.where(idx < 0, idx.astype(np.int64) + n, idx)
+    cols = np.where((cols >= 0) & (cols < n), cols, n)
+    wt = w.astype(ndt)
+    acc = np.zeros((x.shape[0], idx.shape[0]), np.float32)
+    for k in range(idx.shape[1]):
+        acc = acc + (xs[:, cols[:, k]] * wt[:, k]).astype(np.float32)
+    return (acc + bias.astype(ndt).astype(np.float32)).astype(ndt)
+
+
+@pytest.mark.parametrize("dtype", list(TYPES), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("B,n,N,K", [(8, 32, 16, 3), (19, 64, 40, 7),
+                                     (5, 16, 200, 9)])
+def test_fanin_matmul_follows_reference_indices_and_types(dtype, B, n, N, K):
+    """Indices in [-n, 0) wrap and any other outside [0, n) gives NaN, as
+    in the reference kernel; in each type the output has the input's
+    type. NaN positions must be equal. Values: float16 bit for bit;
+    float32 within 1e-5 (XLA's float32 sum on the CPU differs from the
+    kernel's by an ulp); bfloat16 within 2^-7 (sum |x w| + |bias| +
+    |y|): XLA on the CPU keeps the bfloat16 product in float32 (excess
+    precision) where the kernel's source, and the port, round it to
+    bfloat16, which moves the sum by at most 2^-8 sum |x w|, and the
+    final rounding by one bfloat16 ulp (2^-7 |y|)."""
+    x, idx, w, bias = _operands(B + N + K, B, n, N, K, wild=True)
+    got, want = _both(dtype, x, idx, w, bias)
+    nan = np.isnan(want)
+    assert nan.any() and (~nan).any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    got, want = got[~nan], want[~nan]
+    if dtype == torch.float16:
+        np.testing.assert_array_equal(got, want)
+    elif dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _, ndt = TYPES[dtype]
+        xr, wr, br = (a.astype(ndt).astype(np.float64) for a in (x, w, bias))
+        n_cols = x.shape[1]
+        cols = np.where(idx < 0, idx + n_cols, idx).clip(0, n_cols - 1)
+        mag = (np.abs(xr[:, cols] * wr[None]).sum(-1) + np.abs(br))[~nan]
+        assert (np.abs(got - want) <= 2.0 ** -7 * (mag + np.abs(want))).all()
+
+
+@pytest.mark.parametrize("dtype", list(TYPES), ids=lambda d: str(d)[6:])
+def test_plain_version_rounds_where_the_reference_source_does(dtype):
+    """The port (the plain version on the CPU) bit for bit against numpy
+    rounding where ``fanin_matmul.py`` rounds, NaN positions equal."""
+    x, idx, w, bias = _operands(5, 33, 70, 45, 11, wild=True)
+    got = fanin_matmul(torch.from_numpy(x).to(dtype), torch.from_numpy(idx),
+                       torch.from_numpy(w).to(dtype),
+                       torch.from_numpy(bias).to(dtype))
+    want = _source_rounding(dtype, x, idx, w, bias).astype(np.float64)
+    got = got.double().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
+def test_out_of_range_index_is_nan_whatever_the_weight():
+    x = torch.ones((2, 4))
+    idx = torch.tensor([[4, 0], [-5, 1], [-4, 3]], dtype=torch.int32)
+    w = torch.tensor([[0.0, 1.0], [0.0, 1.0], [1.0, 1.0]])
+    y = fanin_matmul(x, idx, w, torch.zeros(3))
+    assert torch.isnan(y[:, :2]).all()
+    assert torch.equal(y[:, 2], torch.full((2,), 2.0))   # -4 reads column 0
+
+
+@pytest.mark.parametrize("x_t,w_t,b_t", [
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float16, torch.bfloat16, torch.float16),
+    (torch.float16, torch.float16, torch.float32),
+    (torch.float64, torch.float64, torch.float64)])
+def test_mixed_or_other_types_raise(x_t, w_t, b_t):
+    with pytest.raises(ValueError):
+        fanin_matmul(torch.zeros((2, 4), dtype=x_t),
+                     torch.zeros((3, 2), dtype=torch.int32),
+                     torch.zeros((3, 2), dtype=w_t),
+                     torch.zeros(3, dtype=b_t))
+
+
+@pytest.mark.parametrize("dtype,B,n_in,N,want", [
+    # the bench shape: two rows a block, 128 blocks, all neurons each;
+    # 16 bytes of mbarrier, then the rows' bytes rounded up to 16 and 16
+    # more
+    (torch.float32, 256, 4096, 1024, (True, 2, 1024, 16 + 32768 + 16)),
+    (torch.bfloat16, 256, 4096, 1024, (True, 2, 1024, 16 + 16384 + 16)),
+    (torch.float16, 512, 4096, 3000, (True, 2, 3008, 16 + 16384 + 16)),
+    # one float32 row fills the budget; one column more is not staged
+    (torch.float32, 256, 58_104, 64, (True, 1, 64, 232_448)),
+    (torch.float32, 256, 58_105, 64, (False, 2, 64, 0)),
+    (torch.bfloat16, 600, 116_208, 64, (True, 1, 64, 232_448)),
+    (torch.bfloat16, 600, 116_209, 64, (False, 2, 64, 0)),
+    # two rows fit; two rows do not
+    (torch.float32, 300, 10_000, 8, (True, 2, 32, 16 + 80_000 + 16)),
+    (torch.float32, 600, 40_000, 8, (True, 1, 32, 16 + 160_000 + 16)),
+    # a short batch splits its neurons over more blocks
+    (torch.float32, 8, 4096, 1024, (True, 1, 64, 16 + 16_384 + 16)),
+    (torch.float32, 1, 100, 1000, (True, 1, 32, 16 + 400 + 16)),
+    (torch.float16, 3, 33, 45, (True, 1, 32, 16 + 80 + 16)),
+])
+def test_plan_fanin_branches_and_bytes(dtype, B, n_in, N, want):
+    plan = plan_fanin(B, n_in, N, dtype)
+    assert (plan.staged, plan.rows, plan.span, plan.smem_bytes) == want
+    assert plan.smem_bytes <= DEFAULT_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("dtype", list(TYPES), ids=lambda d: str(d)[6:])
+def test_plan_fanin_stays_in_budget_and_covers_every_neuron(dtype):
+    size = torch.empty((), dtype=dtype).element_size()
+    for B in (1, 7, 64, 200, 256, 513, 4096):
+        for n_in in (1, 33, 4096, 30_000, 58_108, 58_109, 200_000):
+            for N in (1, 45, 256, 1024, 5000):
+                p = plan_fanin(B, n_in, N, dtype)
+                need = [16 + -(-r * n_in * size // 16) * 16 + 16
+                        for r in (0, 1, 2)]
+                assert p.staged == (need[1] <= DEFAULT_SMEM_BUDGET)
+                assert p.smem_bytes <= DEFAULT_SMEM_BUDGET
+                if p.staged:
+                    assert p.smem_bytes == need[p.rows]
+                assert p.rows in (1, 2) and p.span % 32 == 0
+                blocks = -(-N // p.span)
+                assert blocks * p.span >= N > (blocks - 1) * p.span
