@@ -47,7 +47,24 @@ Phases, each printing its own lines:
   6. profile  — one served batch per engine split into the stages of
                 ``LogicEngine.stages`` (host clock) and the device's busy
                 share (``torch.profiler``);
-  7. kernels2 — every kernel the kernel-bench path runs against its
+  7. train    — the training front end on the card: one QAT step of
+                full-width JSC-S from seeded weights on one batch, on
+                the card and on the CPU, held within STEP_TOL (the CPU
+                parity test's tolerance; TF32 off) but for each layer's
+                b, whose gradient under BN is rounding noise; the same
+                step without BN, b held too; then JSC-S trained
+                with the launcher's settings (``train_jsc``: 400 QAT +
+                FCP steps, 80 fine-tune steps, the float reference's
+                800), with ms per step (synchronized) and the test and
+                float accuracies, which must pass the reference test's
+                bar of 0.5; the trained network compiled, synthesized
+                and serving the 8 requests on cuda-streamed, cuda and
+                lut_layer, each from launch counts at 0 and launching
+                its kernel, with labels equal across the engines, to
+                the trained model's argmax on the card and to the CPU
+                gather path; and the profile phase's split of one
+                served batch of the trained network;
+  8. kernels2 — every kernel the kernel-bench path runs against its
                 plain version on the card, on the bench's own inputs:
                 lut_layer, lut_eval and lut_eval_streamed bit for bit;
                 the aig_sim walk, the public ``aig_sim`` route and
@@ -68,11 +85,11 @@ Phases, each printing its own lines:
                 test's tolerances): bench, window, ragged, GQA and fully
                 masked shapes, every dh template (16, 32, 64, 128) and
                 every copy width of its K / V loads;
-  8. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
+  9. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
                 once on the card at the reference's shapes, from every
                 launch count at 0; each of its four kernels must launch;
                 its rows are printed;
-  9. timing2  — each of those kernels at the bench shapes beside its
+  10. timing2 — each of those kernels at the bench shapes beside its
                 plain version, its bound, the library call that computes
                 the same function (the faster of ``torch._int_mm`` of the
                 int8 +-1 operands and the TF32 ``torch.matmul`` of the
@@ -109,6 +126,7 @@ in one run on one card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -123,6 +141,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 ALU_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak, used
 #                               for the kernels' int32 ALU operations
 N_REQUESTS, ROWS_PER_REQUEST = 8, 64
+TRAIN_STEPS = 400             # the launcher's --train-steps default
+STEP_TOL = 1e-5               # tests/test_torch_train.py's TOL
 KERNELS = {
     "lut_eval_streamed": ("src/repro_torch/csrc/lut_eval.cu",
                           "src/repro/kernels/lut_eval/lut_eval.py:292"),
@@ -791,7 +811,6 @@ def phase_serve(torch):
     import numpy as np
     from repro_torch.configs.jsc import JSC_S
     from repro_torch.data.jsc import train_test
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.mlp import (final_masks, init_mlp, mlp_forward,
                                         to_logic)
     from repro_torch.serving.engine import LogicEngine
@@ -826,6 +845,19 @@ def phase_serve(torch):
     print(f"[serve] CPU gather: acc={acc:.4f}, {ties} rows with tied top "
           f"scores; card input codes and MLP argmax agree")
 
+    return serve_engines(torch, net, reqs, want, "[serve]"), xte[: 256]
+
+
+def serve_engines(torch, net, reqs, want, label):
+    """Serve ``reqs`` on bitplane (its default engine on the card,
+    cuda-streamed), bitplane/cuda and lut_layer, each run from launch
+    counts at 0; each must launch its kernel and give the labels
+    ``want``. Returns {kernel: (engine, launches)}."""
+    import numpy as np
+    from repro_torch.configs.jsc import JSC_S
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import LogicEngine
+
     runs = {}
     # engine None: the bitplane default on the card, the streamed kernel
     for backend, engine, kernel in (("bitplane", None, "lut_eval_streamed"),
@@ -846,19 +878,20 @@ def phase_serve(torch):
         results, stats = eng.serve_queue(reqs)
         counts = launch_counts()
         labels = np.concatenate(results)
-        require(counts[kernel] > 0, f"{name}: {kernel} was not launched "
-                f"(counts {counts})")
-        require(np.array_equal(labels, want), f"{name}: labels differ from "
-                f"the CPU gather path ({int((labels != want).sum())} rows)")
+        require(counts[kernel] > 0, f"{label} {name}: {kernel} was not "
+                f"launched (counts {counts})")
+        require(np.array_equal(labels, want), f"{label} {name}: labels "
+                f"differ from the CPU gather path "
+                f"({int((labels != want).sum())} rows)")
         shape = (f"{m.n_luts} LUTs depth {m.depth}, "
                  if backend == "bitplane" else "")
-        print(f"[serve] {name}: {shape}labels == CPU gather == "
+        print(f"{label} {name}: {shape}labels == CPU gather == "
               f"MLP argmax; p50={stats['p50_us']:.1f}us "
               f"p95={stats['p95_us']:.1f}us batches={stats['n_batches']} "
               f"launches while serving {counts} (set-up with synthesis "
               f"{setup:.1f}s)")
         runs[kernel] = (eng, counts[kernel])
-    return runs, xte[: 256]
+    return runs
 
 
 def phase_timing(torch, runs, batch, errs, card):
@@ -976,7 +1009,7 @@ def phase_timing(torch, runs, batch, errs, card):
     return rows
 
 
-def phase_profile(torch, runs, batch, card):
+def phase_profile(torch, runs, batch, card, label=""):
     """Where one served 256-row batch spends its time, per engine: host
     clock per stage of ``LogicEngine.stages`` (median of 50, each ending
     in a synchronize), and the device's busy time from
@@ -1026,12 +1059,150 @@ def phase_profile(torch, runs, batch, card):
                 if kern_n else "not seen by the profiler")
         name = (f"bitplane/{eng.engine}" if eng.backend == "bitplane"
                 else eng.backend)
-        print(f"[profile] {name} one 256-row batch: "
+        print(f"[profile] {label}{name} one 256-row batch: "
               f"{whole:.1f} us end to end; "
               + ", ".join(f"{k} {v:.1f} us" for k, v in parts.items())
               + f"; profiled {wall_us:.1f} us/batch, device busy "
               f"{busy:.2f} us (idle share {idle:.4f}); {symbols[kernel]} "
               f"device time {kern} on {card}")
+
+
+def phase_train(torch, card):
+    """The training front end on the card, then the trained network
+    served through the three kernels. Returns the served engines as
+    ``phase_serve`` does."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs.jsc import JSC_S
+    from repro_torch.data.jsc import batches, train_test
+    from repro_torch.models.mlp import init_mlp, mlp_forward, to_logic
+    from repro_torch.serving.engine import LogicEngine
+    from repro_torch.train.jsc_trainer import TrainStep, train_jsc
+    from repro_torch.train.optim import AdamW
+
+    (xtr, ytr), (xte, yte) = train_test()
+    init = init_mlp(JSC_S, torch.Generator().manual_seed(0))
+    xb, yb = next(batches(xtr, ytr, 256, 0))
+    lr = 2e-3
+    # one step of JSC-S on both devices, and one of JSC-S without BN:
+    # under BN a layer's b has a zero gradient up to rounding, so Adam
+    # moves it by up to lr in a direction rounding picks and b is not
+    # compared there; without BN b has a gradient of its own and is
+    # compared with everything else
+    no_bn = dataclasses.replace(JSC_S, bn=False)
+    for cfg, first in ((JSC_S, init), (no_bn, None)):
+        if first is None:
+            first = init_mlp(cfg, torch.Generator().manual_seed(0))
+        after = {}
+        with tf32(False):
+            for dev in ("cpu", "cuda"):
+                model = copy.deepcopy(first).to(dev)
+                step = TrainStep(cfg, model, AdamW(
+                    lr=lr, weight_decay=1e-4, grad_clip=1.0))
+                loss, grads = step.loss_and_grads(xb, yb)
+                step.opt.update(grads, step.state, step.params)
+                sd = model.state_dict()
+                after[dev] = (
+                    [loss] + list(grads) + list(sd.values()),
+                    ["loss"] + [f"grad {i}" for i in range(len(grads))]
+                    + list(sd))
+        worst, skipped = 0.0, []
+        for got, want, name in zip(after["cuda"][0], after["cpu"][0],
+                                   after["cpu"][1]):
+            got, want = got.detach().cpu(), want.detach()
+            if want.dtype == torch.bool:
+                require(torch.equal(got, want),
+                        f"train step: {name} differs")
+                continue
+            if cfg.bn and name.endswith(".b"):
+                skipped.append(name)
+                continue
+            tol = STEP_TOL * max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            require(err <= tol, f"train step on the card ({cfg.name}, bn "
+                    f"{cfg.bn}): {name} differs from the CPU's by {err} "
+                    f"(tolerance {tol})")
+            worst = max(worst, err)
+        require(not cfg.bn or len(skipped) == cfg.n_layers,
+                f"train step: skipped {skipped}")
+        print(f"[train] one {cfg.name} step with BN {cfg.bn} (loss, "
+              f"{len(grads)} gradients, "
+              + ("BN statistics, " if cfg.bn else "")
+              + f"parameters after AdamW) on the card == the CPU's within {STEP_TOL} x "
+              f"max(1, |cpu|) (max abs difference {worst:.3g}; "
+              + (f"{', '.join(skipped)} not compared: a gradient of "
+                 "rounding noise under BN" if cfg.bn else "b compared")
+              + "), TF32 off")
+
+    # where one training step's time goes: host clock per step (ends in
+    # a synchronize) against the device's busy time (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+    step = TrainStep(JSC_S, copy.deepcopy(init).cuda(),
+                     AdamW(lr=lr, weight_decay=1e-4, grad_clip=1.0))
+    for _ in range(5):
+        step(xb, yb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(xb, yb)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            step(xb, yb)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in dev_events) / 20
+    n_dev = sum(e.count for e in dev_events) / 20
+    host = sorted((e for e in events
+                   if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:4]
+    print(f"[train] one JSC-S QAT step: {wall_ms:.3f} ms host clock, "
+          f"device busy {busy_us:.1f} us over {n_dev:.0f} device "
+          f"operations (idle share {1 - busy_us / (wall_ms * 1e3):.4f}); "
+          "most host time in " + ", ".join(
+              f"{e.key} {e.self_cpu_time_total / 20:.0f} us x "
+              f"{e.count / 20:.0f}" for e in host) + f" per step on {card}")
+    print(f"[train] float32 matmuls: TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    res = train_jsc(JSC_S, steps=TRAIN_STEPS, device="cuda")
+    print(f"[train] JSC-S {TRAIN_STEPS} QAT + FCP steps and "
+          f"{res.steps - TRAIN_STEPS} fine-tune steps of 256 rows on the "
+          f"card: {res.seconds['qat'] * 1e3 / res.steps:.3f} ms per step "
+          f"({res.seconds['qat']:.2f} s); float reference 800 steps "
+          f"{res.seconds['float'] * 1e3 / 800:.3f} ms per step; test acc "
+          f"{res.test_acc:.4f}, train acc {res.train_acc:.4f}, float test "
+          f"acc {res.float_test_acc:.4f} on {card}")
+    require(res.test_acc > 0.5, f"trained JSC-S test accuracy "
+            f"{res.test_acc} is not above 0.5")
+    for i, layer in enumerate(res.model.layers):
+        require(int(layer.mask.sum(1).max()) <= JSC_S.fanins[i],
+                f"trained layer {i} exceeds its fanin")
+
+    t0 = time.perf_counter()
+    net = to_logic(JSC_S, res.model)
+    reqs = [xte[i * ROWS_PER_REQUEST: (i + 1) * ROWS_PER_REQUEST]
+            for i in range(N_REQUESTS)]
+    x = np.concatenate(reqs)
+    want = LogicEngine(net, JSC_S.n_classes, backend="gather",
+                       device="cpu").classify(x)
+    mlp_labels = torch.argmax(mlp_forward(JSC_S, res.model,
+                                          torch.from_numpy(x).cuda())
+                              [:, :JSC_S.n_classes], dim=-1).cpu().numpy()
+    require(np.array_equal(mlp_labels, want), "trained JSC-S: CPU gather "
+            "labels differ from the trained MLP's argmax on the card "
+            f"({int((mlp_labels != want).sum())} rows)")
+    print(f"[train] trained JSC-S compiled to tables in "
+          f"{time.perf_counter() - t0:.1f}s; CPU gather acc "
+          f"{float(np.mean(want == yte[: x.shape[0]])):.4f} on "
+          f"{x.shape[0]} rows == the trained MLP's argmax on the card")
+    return serve_engines(torch, net, reqs, want, "[train] served trained")
 
 
 def phase_kernels2(torch, errs):
@@ -1640,6 +1811,7 @@ def main() -> int:
     runs, batch = phase_serve(torch)
     rows = phase_timing(torch, runs, batch, errs, card)
     phase_profile(torch, runs, batch, card)
+    phase_profile(torch, phase_train(torch, card), batch, card, "trained ")
     inp = phase_kernels2(torch, errs)
     counts = phase_bench(torch)
     rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)

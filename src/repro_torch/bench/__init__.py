@@ -1,2 +1,4 @@
 """Benchmarks of the port (torch twins of the reference's
-``benchmarks/``); each writes its own ``BENCH_*_torch.json``."""
+``benchmarks/``): ``kernels_bench`` writes its own
+``BENCH_kernels_torch.json`` when asked; ``ablations`` prints its
+JSON."""

@@ -1,15 +1,18 @@
 """NullaNet Tiny core, in torch: quantizer forwards, FCP masks, truth
 tables, two-level minimization and logic-network inference.
 
-    quant      — quantizer forward passes, per-layer activation
-                 selection, BN folding.
-    fcp        — fanin-constrained pruning masks.
+    quant      — STE quantizers (sign/binary/PACT/signed/DoReFa),
+                 per-layer activation selection, BN folding.
+    fcp        — fanin-constrained pruning (masks, gradual + ADMM).
     truthtable — neuron -> truth-table enumeration (host).
     espresso   — two-level minimization (espresso-lite; numpy).
     lutcost    — the shared 6-LUT cost model.
-    logic_infer— torch execution of compiled logic networks.
+    lutmap     — 6-LUT mapping + fmax/FF cost model, structural report.
+    logic_infer— torch execution of compiled logic networks, hardware
+                 report.
 """
-from . import espresso, fcp, lutcost, quant, truthtable  # noqa: F401
+from . import (espresso, fcp, lutcost, lutmap, quant,  # noqa: F401
+               truthtable)
 from .logic_infer import (LogicNetwork, classify, compile_mlp_to_logic,  # noqa: F401
-                          logic_layer_apply)
+                          hardware_report, logic_layer_apply)
 from .quant import ActQuantSpec, select_activation  # noqa: F401

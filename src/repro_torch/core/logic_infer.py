@@ -141,6 +141,43 @@ def compile_mlp_to_logic(params: dict, specs: Sequence[ActQuantSpec],
     return LogicNetwork(layer_tables, in_spec, float(in_alpha), n_in, n_out)
 
 
+# ---------------------------------------------------------------------------
+# Hardware report for a LogicNetwork (espresso + lutmap pipeline, host)
+# ---------------------------------------------------------------------------
+
+def hardware_report(net: LogicNetwork, minimize_logic: bool = True):
+    """Two-level minimization + LUT mapping over every neuron.
+
+    Returns (MapReport, per-layer list). ``minimize_logic=False`` gives the
+    LogicNets-style baseline cost (raw table mapping, no espresso).
+    """
+    from .espresso import minimize
+    from .lutmap import (MapReport, logicnets_lut_cost, map_cover,
+                         map_layer, map_network)
+    from .truthtable import onset_of
+
+    per_layer = []
+    for lt in net.layers:
+        out_bits = lt.out_spec.code_bits
+        in_bits = lt.in_spec.code_bits
+        fanin_bits = lt.fanin * in_bits
+        neuron_reports = []
+        for j in range(lt.n_neurons):
+            table = np.asarray(lt.tables[j])
+            if minimize_logic:
+                # one Boolean function per output bit, on bit-level rows
+                rep = MapReport(0, 0, 0)
+                for ob in range(out_bits):
+                    onset, dc = _bitexpand(onset_of(table, ob), lt, in_bits)
+                    rep = rep + map_cover(minimize(onset, dc))
+                neuron_reports.append(rep)
+            else:
+                neuron_reports.append(logicnets_lut_cost(fanin_bits, out_bits))
+        per_layer.append(
+            map_layer(neuron_reports, out_bits * lt.n_neurons))
+    return map_network(per_layer), per_layer
+
+
 def _bitexpand(onset_codes: np.ndarray, lt: LayerTables, in_bits: int):
     """Re-index an onset from code-radix rows to bit-packed rows.
 

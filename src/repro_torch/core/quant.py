@@ -1,17 +1,25 @@
-"""Quantizer forward passes (NullaNet Tiny §QAT), in torch.
+"""Quantization-aware training primitives (NullaNet Tiny §QAT), in torch.
 
 The paper's per-layer activation selection: a signed quantizer
 (``sign`` / bipolar / symmetric multi-bit) where a layer's inputs take
 both signs, PACT (parameterized clipping activation) where they are
 non-negative.
 
-Only the forward halves are ported so far; the straight-through
-gradients come with training. Each function keeps the reference's
-float32 operation order (``repro/core/quant.py``), so that codes agree
-bit for bit on the same inputs: ``ste_round``'s forward is
-``x + (round(x) - x)``, not ``round(x)``, and ``encode_levels`` computes
-``round(x * half / alpha) + half`` left to right. ``torch.round`` and
-``jnp.round`` both round half to even.
+Every quantizer is differentiable through straight-through estimators
+(STE): ``ste_round`` / ``ste_floor`` pass the gradient unchanged,
+``sign_ste`` passes it where |x| <= 1 (hard tanh) and ``binary_ste``
+where 0 <= x <= 1. ``pact`` and ``signed_uniform`` clip with
+``torch.maximum`` / ``torch.minimum``, which give each side half the
+gradient at a tie, as the reference's ``jnp.clip`` does, so the
+gradients in ``x`` and ``alpha`` at x = 0 and x = +-alpha are the
+reference's too.
+
+Each function keeps the reference's float32 operation order
+(``repro/core/quant.py``), so that codes agree bit for bit on the same
+inputs: ``ste_round``'s forward is ``x + (round(x) - x)``, not
+``round(x)``, and ``encode_levels`` computes ``round(x * half / alpha)
++ half`` left to right. ``torch.round`` and ``jnp.round`` both round
+half to even.
 
 Subnormal inputs are flushed to (signed) zero where values enter the
 quantizers (``apply_act_quant``, ``encode_levels``), as the reference's
@@ -42,25 +50,61 @@ def flush_subnormals(x: Tensor) -> Tensor:
 
 
 def ste_round(x: Tensor) -> Tensor:
-    """round(x) as the reference's straight-through form computes it."""
-    return x + (torch.round(x) - x)
+    """round(x) in the forward pass, identity gradient."""
+    return x + (torch.round(x) - x).detach()
 
 
-def sign(x: Tensor) -> Tensor:
-    """Bipolar sign {-1, +1}; sign(0) is +1."""
-    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+def ste_floor(x: Tensor) -> Tensor:
+    """floor(x) in the forward pass, identity gradient."""
+    return x + (torch.floor(x) - x).detach()
 
 
-def binary(x: Tensor) -> Tensor:
-    """Binary {0, 1} step at 0.5."""
-    return (x >= 0.5).to(x.dtype)
+class _SignSTE(torch.autograd.Function):
+    """Bipolar sign forward; the gradient passes where |x| <= 1 (hard
+    tanh, Hubara et al.)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (torch.abs(x) <= 1.0).to(g.dtype)
+
+
+class _BinarySTE(torch.autograd.Function):
+    """{0, 1} step forward; the gradient passes where 0 <= x <= 1."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return (x >= 0.5).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * ((x >= 0.0) & (x <= 1.0)).to(g.dtype)
+
+
+def sign_ste(x: Tensor) -> Tensor:
+    """Bipolar sign {-1, +1} (sign(0) is +1), clipped-identity STE."""
+    return _SignSTE.apply(x)
+
+
+def binary_ste(x: Tensor) -> Tensor:
+    """Binary {0, 1} step at 0.5, clipped-identity STE on [0, 1]."""
+    return _BinarySTE.apply(x)
 
 
 def pact(x: Tensor, alpha, bits: int) -> Tensor:
-    """PACT: clip(x, 0, alpha) quantized to 2^bits levels."""
+    """PACT: clip(x, 0, alpha) quantized to 2^bits levels. The gradient
+    reaches ``alpha`` through the clip and through the scale."""
     alpha = _as(alpha, x)
     levels = (1 << bits) - 1
-    y = torch.minimum(torch.clamp(x, min=0.0), alpha)
+    # maximum(x, 0) gives -0.0 for -0.0 (the reference +0.0; equal)
+    y = torch.minimum(torch.maximum(x, torch.zeros_like(alpha)), alpha)
     scale = _as(levels, x) / torch.clamp(alpha, min=1e-8)
     return ste_round(y * scale) / scale
 
@@ -77,7 +121,7 @@ def signed_uniform(x: Tensor, alpha, bits: int) -> Tensor:
     levels; bits=1 is bipolar sign * alpha."""
     alpha = _as(alpha, x)
     if bits == 1:
-        return sign(x) * alpha
+        return sign_ste(x) * alpha
     half = (1 << (bits - 1)) - 1
     y = torch.minimum(torch.maximum(x, -alpha), alpha)
     scale = _as(half, x) / torch.clamp(alpha, min=1e-8)
@@ -90,6 +134,24 @@ def signed_levels(alpha: float, bits: int) -> np.ndarray:
     half = (1 << (bits - 1)) - 1
     return (np.arange(-half, half + 1, dtype=np.float32)
             * np.float32(alpha / half))
+
+
+def dorefa_weight(w: Tensor, bits: int) -> Tensor:
+    """DoReFa-Net weight quantization (Zhou et al. 2016).
+
+    bits=1: sign(w) * E[|w|] (XNOR-Net-style scaling, the scale carries
+    no gradient). bits>1: tanh-normalised uniform quantization to
+    [-1, 1]."""
+    if bits >= 32:
+        return w
+    if bits == 1:
+        return sign_ste(w) * torch.mean(torch.abs(w)).detach()
+    t = torch.tanh(w)
+    t = t / torch.clamp(torch.amax(torch.abs(t)), min=1e-8)
+    u = (t + 1.0) * 0.5
+    levels = (1 << bits) - 1
+    q = ste_round(u * levels) / levels
+    return 2.0 * q - 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,9 +213,9 @@ def apply_act_quant(spec: ActQuantSpec, x: Tensor, alpha) -> Tensor:
         return x
     x = flush_subnormals(x)
     if spec.kind == "sign":
-        return sign(x) * _as(alpha, x)
+        return sign_ste(x) * _as(alpha, x)
     if spec.kind == "binary":
-        return binary(x) * _as(alpha, x)
+        return binary_ste(x) * _as(alpha, x)
     if spec.kind == "pact":
         return pact(x, alpha, spec.bits)
     if spec.kind == "signed":
@@ -180,6 +242,13 @@ def encode_levels(spec: ActQuantSpec, x: Tensor, alpha) -> Tensor:
         return torch.clamp(torch.round(xf * half / alpha) + half,
                            0, 2 * half).to(torch.int32)
     raise ValueError(spec.kind)
+
+
+def decode_levels(spec: ActQuantSpec, codes: Tensor, alpha: float) -> Tensor:
+    """Integer level codes -> real activation values (float32, on the
+    codes' device)."""
+    lv = torch.as_tensor(spec.levels(alpha), device=codes.device)
+    return lv[codes.long()]
 
 
 def fold_bn(w: Tensor, b: Tensor, gamma: Tensor, beta: Tensor, mean: Tensor,

@@ -8,14 +8,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
       --backend bitplane --engine cuda --device cpu
 
-The model is a seeded, untrained JSC MLP (``--seed``; the reference
-launcher's state after ``train_jsc(cfg, steps=0)``) or weights saved
-with ``repro_torch.weights.save_params_npz`` (``--params``). It is
-compiled to truth tables on the host, synthesized to a mapped netlist
-for ``--backend bitplane``, and serves ``--requests`` requests of 64
-rows of the JSC test split through ``LogicEngine.serve_queue``. The
-launcher prints the mapped LUT count and depth, accuracy, p50/p95
-latency and each kernel's launches during serving.
+  # train JSC-S for 20 steps on the CPU first, then serve it there
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
+      --train-steps 20 --device cpu
+
+As the reference launcher does, the model is first trained with QAT +
+FCP (``train_jsc``, ``--train-steps``, default 400, from a
+``torch.Generator`` seeded with ``--seed``; ``--train-steps 0`` gives
+the seeded init projected to its fanin budget), on the same device as
+the serving; or it is loaded from weights saved with
+``repro_torch.weights.save_params_npz`` (``--params``). It is compiled
+to truth tables on the host, synthesized to a mapped netlist for
+``--backend bitplane``, and serves ``--requests`` requests of 64 rows
+of the JSC test split through ``LogicEngine.serve_queue``. The launcher
+prints the test accuracy after training, the mapped LUT count and
+depth, the served accuracy, p50/p95 latency and each kernel's launches
+during serving.
 """
 from __future__ import annotations
 
@@ -23,7 +31,6 @@ import argparse
 from typing import Optional
 
 import numpy as np
-import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.serving.engine import BACKENDS
@@ -33,24 +40,31 @@ ROWS_PER_REQUEST = 64
 
 def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
                 backend: str = "gather", engine: Optional[str] = None,
-                params: Optional[str] = None, seed: int = 0,
-                device=None) -> dict:
+                params: Optional[str] = None, train_steps: int = 400,
+                seed: int = 0, device=None) -> dict:
     from repro_torch.configs.jsc import JSC
     from repro_torch.data.jsc import train_test
     from repro_torch.kernels import launch_counts
-    from repro_torch.models.mlp import final_masks, init_mlp, to_logic
+    from repro_torch.models.mlp import to_logic
     from repro_torch.serving.engine import LogicEngine
+    from repro_torch.train.jsc_trainer import train_jsc
     from repro_torch.weights import load_params_npz
 
     dev = resolve_device(device)
     cfg = JSC[jsc_name]
+    out = {}
     if params:
         print(f"[serve] loading {jsc_name} weights from {params}")
         model = load_params_npz(params)
     else:
-        print(f"[serve] seeded untrained {jsc_name} (seed {seed})")
-        model = init_mlp(cfg, torch.Generator().manual_seed(seed))
-        model.set_masks(final_masks(cfg, model))
+        print(f"[serve] training {jsc_name} with QAT+FCP ({train_steps} "
+              f"steps, seed {seed}, device {dev})")
+        res = train_jsc(cfg, steps=train_steps, seed=seed, device=dev)
+        print(f"  test acc: {res.test_acc:.4f} (float reference "
+              f"{res.float_test_acc:.4f}); {res.steps} steps in "
+              f"{res.seconds['qat']:.2f}s")
+        model = res.model
+        out["test_acc"] = res.test_acc
     print("[serve] compiling to fixed-function logic ...")
     net = to_logic(cfg, model)
     eng = LogicEngine(net, cfg.n_classes, backend=backend, engine=engine,
@@ -71,7 +85,7 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
           f"p50={stats['p50_us']:.1f}us p95={stats['p95_us']:.1f}us")
     print("[serve] kernel launches: " + ", ".join(
         f"{k}={v}" for k, v in launches.items()))
-    return {**stats, "acc": acc, "launches": launches}
+    return {**stats, **out, "acc": acc, "launches": launches}
 
 
 def main(argv=None):
@@ -91,17 +105,22 @@ def main(argv=None):
                          "on a CUDA device, numpy on the CPU")
     ap.add_argument("--requests", type=int, default=8,
                     help=f"requests of {ROWS_PER_REQUEST} rows to serve")
+    ap.add_argument("--train-steps", type=int, default=400,
+                    help="QAT + FCP training steps before compiling "
+                         "(fine-tune of a fifth of them after)")
     ap.add_argument("--params", default=None, metavar="NPZ",
                     help="weights saved by repro_torch.weights."
-                         "save_params_npz (default: seeded init)")
-    ap.add_argument("--seed", type=int, default=0)
+                         "save_params_npz, served instead of training")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="training seed (init and batches)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
     return serve_logic(args.jsc, args.requests, backend=args.backend,
                        engine=args.engine, params=args.params,
-                       seed=args.seed, device=args.device)
+                       train_steps=args.train_steps, seed=args.seed,
+                       device=args.device)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,11 @@ fixed-function logic via ``repro_torch.core``.
 ``b``, learnable quantizer range ``alpha`` and BN affine ``bn_gamma`` /
 ``bn_beta`` as parameters, and the FCP mask and BN running statistics
 as buffers. Like the reference, the functions take the configuration
-beside the module (``mlp_forward(cfg, model, x)``). Only the
-evaluation half is ported so far: seeded init, the eval-mode forward,
-final FCP masks and the compile to logic; training comes later.
+beside the module (``mlp_forward(cfg, model, x)``). The train-mode
+forward takes batch statistics (population variance, as ``jnp.var``)
+and updates the BN running statistics in place, as a torch BatchNorm
+does, where the reference returns them; ``mlp_loss`` is the
+reference's temperature-sharpened cross entropy.
 """
 from __future__ import annotations
 
@@ -22,8 +24,11 @@ import torch
 from torch import nn
 
 from repro_torch.core import quant as Q
-from repro_torch.core.fcp import topk_row_mask
+from repro_torch.core.fcp import GradualFCP, topk_row_mask
 from repro_torch.core.quant import ActQuantSpec
+
+BN_MOMENTUM = 0.1
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,20 +114,63 @@ def layer_alpha(cfg: MLPConfig, layer: MLPLayer) -> torch.Tensor:
     return torch.abs(layer.alpha) + 1e-3
 
 
-@torch.no_grad()
-def mlp_forward(cfg: MLPConfig, model: MLP, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode quantized forward (BN from running statistics): the
-    decoded real values of the last layer (pre-argmax)."""
+def mlp_forward(cfg: MLPConfig, model: MLP, x: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+    """Quantized forward: the decoded real values of the last layer
+    (pre-argmax).
+
+    Eval mode (the default) runs without autograd and normalises with
+    the BN running statistics. Train mode keeps the graph, normalises
+    with the batch's mean and population variance, and moves the
+    running statistics towards them by ``BN_MOMENTUM``, in place."""
+    if not train:
+        with torch.no_grad():
+            return _forward(cfg, model, x, False)
+    return _forward(cfg, model, x, True)
+
+
+def _forward(cfg: MLPConfig, model: MLP, x: torch.Tensor,
+             train: bool) -> torch.Tensor:
     specs = cfg.layer_specs()
     h = Q.apply_act_quant(cfg.in_spec(), x, cfg.alpha)
     for i, layer in enumerate(model.layers):
         w = torch.where(layer.mask, layer.w, 0.0)
         y = h @ w.T + layer.b
         if cfg.bn:
-            y = (y - layer.bn_mean) * torch.rsqrt(layer.bn_var + 1e-5)
+            if train:
+                mu = torch.mean(y, dim=0)
+                var = torch.var(y, dim=0, correction=0)
+                with torch.no_grad():
+                    layer.bn_mean.copy_((1 - BN_MOMENTUM) * layer.bn_mean
+                                        + BN_MOMENTUM * mu)
+                    layer.bn_var.copy_((1 - BN_MOMENTUM) * layer.bn_var
+                                       + BN_MOMENTUM * var)
+            else:
+                mu, var = layer.bn_mean, layer.bn_var
+            y = (y - mu) * torch.rsqrt(var + 1e-5)
             y = y * layer.bn_gamma + layer.bn_beta
         h = Q.apply_act_quant(specs[i], y, layer_alpha(cfg, layer))
     return h
+
+
+def mlp_loss(cfg: MLPConfig, model: MLP, x: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``log_softmax(logits / 0.25)``
+    (the temperature sharpens the quantized scores), over the train-mode
+    forward."""
+    scores = mlp_forward(cfg, model, x, train=True)
+    logp = torch.log_softmax(scores[:, : cfg.n_classes] / 0.25, dim=-1)
+    return -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
+
+
+@torch.no_grad()
+def update_masks_gradual(cfg: MLPConfig, model: MLP, step: int,
+                         schedule: GradualFCP) -> List[torch.Tensor]:
+    """FCP masks at ``step`` of the gradual schedule, each layer with its
+    own target fanin."""
+    return [dataclasses.replace(schedule, target_fanin=cfg.fanins[i])
+            .update_mask(layer.w, step)
+            for i, layer in enumerate(model.layers)]
 
 
 @torch.no_grad()

@@ -4,7 +4,10 @@
 (``{"layers": [{"w", "b", "alpha", "bn_gamma", "bn_beta"}, ...]}``, the
 masks list and ``{"mean": [...], "var": [...]}``) as numpy arrays or
 anything ``np.asarray`` accepts, and returns the port's module; nothing
-of JAX is imported. ``save_params_npz`` / ``load_params_npz`` keep a
+of JAX is imported. ``params_to_jax`` is its inverse: the module as
+numpy arrays in the reference's layout, which ``jnp.asarray`` (or
+``jax.tree.map(jnp.asarray, ...)``) turns into the reference's
+pytrees. ``save_params_npz`` / ``load_params_npz`` keep a
 model in one ``.npz`` with a flat layout:
 
     layers.{i}.{w,b,alpha,bn_gamma,bn_beta}   parameters
@@ -14,7 +17,7 @@ model in one ``.npz`` with a flat layout:
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +52,22 @@ def params_from_jax(params: dict, masks: Sequence,
             layer.bn_var.copy_(torch.as_tensor(
                 np.array(bn_state["var"][i], np.float32)))
     return model
+
+
+@torch.no_grad()
+def params_to_jax(model: MLP) -> Tuple[dict, List[np.ndarray], Optional[dict]]:
+    """The port's module as the reference's ``(params, masks, bn_state)``
+    of numpy arrays (``bn_state`` is None without BN)."""
+    layers, masks = [], []
+    for layer in model.layers:
+        layers.append({name: getattr(layer, name).detach().cpu().numpy()
+                       for name in _PARAMS if hasattr(layer, name)})
+        masks.append(layer.mask.cpu().numpy())
+    bn_state = None
+    if model.layers[0].bn:
+        bn_state = {"mean": [l.bn_mean.cpu().numpy() for l in model.layers],
+                    "var": [l.bn_var.cpu().numpy() for l in model.layers]}
+    return {"layers": layers}, masks, bn_state
 
 
 def save_params_npz(path, model: MLP) -> None:

@@ -312,6 +312,85 @@ def test_engines_serve_identically_on_card(cuda_device):
         np.testing.assert_array_equal(eng.classify(x), want)
 
 
+@pytest.mark.parametrize("bn", [True, False])
+def test_train_step_on_card_matches_cpu(cuda_device, bn):
+    """One QAT step of full-width JSC-S from seeded weights on one batch:
+    the loss, every gradient, the BN statistics and the parameters after
+    AdamW on the card equal the CPU's within the CPU parity test's
+    tolerance (1e-5 x max(1, |cpu|), tests/test_torch_train.py), TF32
+    off. Under BN a layer's b has a gradient of rounding noise, so Adam
+    moves it by up to lr in a direction rounding picks: b is compared
+    only without BN."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.jsc import JSC_S
+    from repro_torch.data.jsc import batches, train_test
+    from repro_torch.models.mlp import init_mlp
+    from repro_torch.train.jsc_trainer import TrainStep
+    from repro_torch.train.optim import AdamW
+    cfg = dataclasses.replace(JSC_S, bn=bn)
+    (xtr, ytr), _ = train_test(4000, 1000)
+    xb, yb = next(batches(xtr, ytr, 256, 0))
+    init = init_mlp(cfg, torch.Generator().manual_seed(0))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            model = copy.deepcopy(init).to(dev)
+            step = TrainStep(cfg, model, AdamW(lr=2e-3, weight_decay=1e-4,
+                                               grad_clip=1.0))
+            loss, grads = step.loss_and_grads(xb, yb)
+            step.opt.update(grads, step.state, step.params)
+            out[str(dev)] = ([loss, *grads], model.state_dict())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    (cpu_t, cpu_sd), (card_t, card_sd) = out["cpu"], out[str(cuda_device)]
+    for i, (got, want) in enumerate(zip(card_t, cpu_t)):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want.abs().max())), (i, err)
+    for name, want in cpu_sd.items():
+        got = card_sd[name].cpu()
+        if want.dtype == torch.bool:
+            assert torch.equal(got, want), name
+            continue
+        if bn and name.endswith(".b"):
+            continue
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol, name
+
+
+def test_trained_network_serves_identically_on_card(cuda_device):
+    """JSC_DEMO trained on the card (100 steps), compiled and served by
+    the three kernels: labels equal the CPU gather path's and the
+    trained model's argmax on the card."""
+    from repro_torch.configs.jsc import JSC_DEMO
+    from repro_torch.data.jsc import train_test
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.mlp import mlp_forward, to_logic
+    from repro_torch.serving.engine import LogicEngine
+    from repro_torch.train.jsc_trainer import train_jsc
+    data = train_test(4000, 1000)
+    res = train_jsc(JSC_DEMO, steps=100, batch=128, data=data)
+    assert next(res.model.parameters()).is_cuda
+    net = to_logic(JSC_DEMO, res.model)
+    x = data[1][0][:300]
+    want = LogicEngine(net, 5, max_batch=128, device="cpu").classify(x)
+    mlp = torch.argmax(mlp_forward(JSC_DEMO, res.model,
+                                   torch.from_numpy(x).to(cuda_device))
+                       [:, :5], dim=-1).cpu().numpy()
+    np.testing.assert_array_equal(mlp, want)
+    for backend, engine, kernel in (
+            ("bitplane", "cuda-streamed", "lut_eval_streamed"),
+            ("bitplane", "cuda", "lut_eval"), ("lut_layer", "numpy",
+                                               "lut_layer")):
+        eng = LogicEngine(net, 5, max_batch=128, backend=backend,
+                          engine=engine, device=cuda_device)
+        reset_launch_counts()
+        np.testing.assert_array_equal(eng.classify(x), want)
+        assert launch_counts()[kernel] > 0
+
+
 @pytest.mark.parametrize("n_words", [1, 257])
 def test_aig_sim_walk_and_route_match_plain(cuda_device, n_words):
     rng = np.random.default_rng(n_words)

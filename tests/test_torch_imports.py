@@ -38,6 +38,22 @@ def test_every_module_imports_without_jax():
     assert bad == "[]", out.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.train.jsc_trainer",
+                                    "repro_torch.core.lutmap",
+                                    "repro_torch.bench.ablations"])
+def test_training_modules_import_without_jax(module):
+    """Each module of the training slice, alone in a fresh interpreter,
+    leaves JAX and the reference package out of ``sys.modules``."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
@@ -58,11 +74,17 @@ def test_entry_points_default_to_cuda():
     from repro_torch.device import NoCudaDeviceError, resolve_device
     from repro_torch.launch.serve import main
     from repro_torch.serving.engine import LogicEngine
+    from repro_torch.configs.jsc import JSC_DEMO
+    from repro_torch.train.jsc_trainer import train_jsc
     with pytest.raises(NoCudaDeviceError):
         resolve_device()
+    with pytest.raises(NoCudaDeviceError):
+        train_jsc(JSC_DEMO, steps=1)
     net = LogicNetwork([], ActQuantSpec("signed", 2), 1.0, 4, 0)
     with pytest.raises(NoCudaDeviceError):
         LogicEngine(net, 5)
     with pytest.raises(NoCudaDeviceError):
         main(["--mode", "logic", "--requests", "1"])
+    with pytest.raises(NoCudaDeviceError):   # the launcher's train path
+        main(["--mode", "logic", "--train-steps", "2", "--requests", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
