@@ -64,7 +64,35 @@ Phases, each printing its own lines:
                 the trained model's argmax on the card and to the CPU
                 gather path; and the profile phase's split of one
                 served batch of the trained network;
-  8. kernels2 — every kernel the kernel-bench path runs against its
+  8. loadgen  — the serving-at-scale path, from every launch count at
+                0: ``repro_torch.bench.loadgen.run`` in its fast mode
+                (JSC-S trained 150 steps, 1,000 requests a section) on
+                gather, lut_layer, bitplane-cuda and bitplane-streamed,
+                open and closed loop and two SLO lanes, two replicas
+                behind ``least_slack``, traced, publishing into a
+                registry behind a ``MetricsServer`` on 127.0.0.1; the
+                labels of every section must equal ``classify``'s and
+                agree across the backends, lut_eval_streamed, lut_eval
+                and lut_layer must each launch, ``/metrics`` and
+                ``/metrics.json`` must show every backend's window
+                series, the trace must reconcile (``analyze_trace``, the
+                reference's 5 % with its straggler allowance) with
+                nothing dropped, and the latency table it wrote must
+                hold finite, non-negative rows of both walks and name
+                the card; it prints each section's qps, p50/p95/p99,
+                batch occupancy, shed and miss rate, the online profile,
+                the calibrated netlist estimate, the tracer overhead,
+                the table's per-level and per-tile µs, and the garbage
+                collector's passes during the run beside the requests
+                slower than 20 ms that were in flight during a pass of
+                10 ms or more. Then the trained
+                network of the train phase under the scheduler, 1 and 2
+                replicas, open and closed loop, with labels equal to
+                ``classify``: qps, percentiles and occupancy of an
+                unprofiled run, the device's idle share from a profiled
+                one, and, with one replica, the online profiler fed by
+                the bitplane aggregators;
+  9. kernels2 — every kernel the kernel-bench path runs against its
                 plain version on the card, on the bench's own inputs:
                 lut_layer, lut_eval and lut_eval_streamed bit for bit;
                 the aig_sim walk, the public ``aig_sim`` route and
@@ -85,11 +113,11 @@ Phases, each printing its own lines:
                 test's tolerances): bench, window, ragged, GQA and fully
                 masked shapes, every dh template (16, 32, 64, 128) and
                 every copy width of its K / V loads;
-  9. bench    — the second path: ``repro_torch.bench.kernels_bench.run``
+  10. bench   — the second path: ``repro_torch.bench.kernels_bench.run``
                 once on the card at the reference's shapes, from every
                 launch count at 0; each of its four kernels must launch;
                 its rows are printed;
-  10. timing2 — each of those kernels at the bench shapes beside its
+  11. timing2 — each of those kernels at the bench shapes beside its
                 plain version, its bound, the library call that computes
                 the same function (the faster of ``torch._int_mm`` of the
                 int8 +-1 operands and the TF32 ``torch.matmul`` of the
@@ -1205,6 +1233,235 @@ def phase_train(torch, card):
     return serve_engines(torch, net, reqs, want, "[train] served trained")
 
 
+LOADGEN_BACKENDS = ("gather", "lut_layer", "bitplane-cuda",
+                    "bitplane-streamed")
+LOADGEN_KERNELS = ("lut_eval_streamed", "lut_eval", "lut_layer")
+LOADGEN_PROFILE_ITERS = 200   # launches per latency-table prefix (the
+#                               reference's fast mode takes 2)
+
+
+def scrape(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as r:
+        require(r.status == 200, f"{url}: HTTP {r.status}")
+        return r.read().decode()
+
+
+def phase_loadgen(torch, card, trained):
+    """The serving-at-scale path: the loadgen harness on four backends
+    with two replicas, traced and published behind the metrics
+    endpoint, from launch counts at 0; then the trained network of the
+    train phase (``trained``, as ``serve_engines`` returns it) under
+    the scheduler with 1 and 2 replicas, for qps, percentiles and the
+    device's idle share."""
+    import gc
+    import math
+    import tempfile
+
+    import numpy as np
+    from repro_torch.bench import loadgen as lg
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import (LatencyTable, MetricsRegistry,
+                                 MetricsServer, analyze_trace)
+
+    # every garbage-collector pass of the run, on the tracer's clock
+    # (perf_counter µs): a pass stops the scheduler thread with the rest
+    gc_passes, gc_start = [], {}
+
+    def on_gc(phase, info):
+        now = time.perf_counter() * 1e6
+        if phase == "start":
+            gc_start["t"] = now
+        else:
+            gc_passes.append((info["generation"], gc_start.get("t", now),
+                              now))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "t.json")
+        reg = MetricsRegistry()
+        srv = MetricsServer(reg, port=0)
+        gc.callbacks.append(on_gc)
+        try:
+            reset_launch_counts()
+            out = lg.run(fast=True, backends=LOADGEN_BACKENDS,
+                         loadgen="both", n_replicas=2, trace=trace,
+                         registry=reg, write_json=False,
+                         profile_iters=LOADGEN_PROFILE_ITERS)
+            counts = launch_counts()
+            prom = scrape(srv.url)
+            snap = json.loads(scrape(srv.url + ".json"))
+        finally:
+            gc.callbacks.remove(on_gc)
+            srv.close()
+        seconds = time.perf_counter() - t0
+        report = analyze_trace(trace)
+        table = LatencyTable.load(out["trace"]["lut_table"])
+
+    require(out["argmax_identical_across_backends"],
+            "loadgen: argmax differs across backends")
+    for b, rec in out["backends"].items():
+        for sec, key in (("open_loop", "identical_to_classify"),
+                         ("closed_loop", "identical_to_classify"),
+                         ("slo_lanes", "identical_on_served")):
+            require(rec[sec][key], f"loadgen {b}/{sec}: labels differ from "
+                    "classify")
+    for k in LOADGEN_KERNELS:
+        require(counts[k] > 0, f"loadgen: {k} was not launched (counts "
+                f"{counts})")
+    for b in LOADGEN_BACKENDS:
+        require(f"{b}.windows" in snap and snap[f"{b}.windows"]["lanes"],
+                f"/metrics.json has no window series of {b}")
+        name = re.sub(r"[^a-zA-Z0-9_:]", "_", f"{b}.windows.window_us")
+        require(f"repro_{name} " in prom,
+                f"/metrics has no window series of {b}")
+    rec = report.reconciliation()
+    require(rec["ok"] and rec["n_checked"] > 0,
+            f"loadgen trace does not reconcile: {rec}")
+    require(out["trace"]["dropped"] == 0,
+            f"loadgen trace dropped {out['trace']['dropped']} events")
+    walks = {r["source"] for r in table.rows}
+    require({"plan", "tile"} <= walks, f"latency table rows {walks}")
+    require(all(math.isfinite(r["device_us"]) and r["device_us"] >= 0
+                for r in table.rows), "latency table: a row is not finite "
+            "and non-negative")
+    require(table.meta.get("backend") == "cuda"
+            and table.meta.get("device") == torch.cuda.get_device_name(0),
+            f"latency table meta {table.meta}")
+
+    print(f"[loadgen] run on {LOADGEN_BACKENDS}, 2 replicas, "
+          f"{out['n_requests']} requests a section, {out['train_steps']} "
+          f"training steps: {seconds:.1f}s; launches {counts}; offered "
+          f"{out['offered_qps']} qps open loop, {out['slo_offered_qps']} "
+          f"qps SLO lanes {out['slo_us']} us; sequential baseline "
+          f"{out['baseline_sequential']['qps']:.1f} qps on {card}")
+    for b, r in out["backends"].items():
+        for sec in ("open_loop", "closed_loop"):
+            x = r[sec]
+            print(f"[loadgen] {b}/{sec}: {x['qps']:.1f} qps p50 "
+                  f"{x['p50_us']:.1f} p95 {x['p95_us']:.1f} p99 "
+                  f"{x['p99_us']:.1f} us, occupancy "
+                  f"{x['mean_batch_occupancy']:.4f} ({x['n_batches']} "
+                  f"batches), shed {x['shed']}, miss rate "
+                  f"{x['deadline_miss_rate']:.4f}")
+        lanes = r["slo_lanes"]
+        print(f"[loadgen] {b}/slo_lanes: {lanes['qps']:.1f} qps, shed "
+              f"{lanes['shed']}, miss rate {lanes['deadline_miss_rate']}; "
+              + "; ".join(f"lane {k} p50 {v['p50_us']:.1f} p99 "
+                          f"{v['p99_us']:.1f} us attainment "
+                          f"{v['slo_attainment']}"
+                          for k, v in lanes["lanes"].items()))
+        if "online_profile" in r:
+            print(f"[loadgen] {b}: calibrated netlist estimate "
+                  f"{out['trace']['exec_estimate_us'][b]} us/batch; online "
+                  f"profile {r['online_profile']}")
+    print(f"[loadgen] tracer overhead {out['tracer_overhead']}")
+    print(f"[loadgen] trace: {out['trace']['events']} events, "
+          f"reconciliation {rec}")
+    long_gc = [(g, a, b) for g, a, b in gc_passes if b - a >= 10_000]
+    slow = [r for r in report.requests if r.latency_us is not None
+            and r.t_begin_us is not None and r.latency_us >= 20_000]
+    hit = [r for r in slow if any(a < r.t_end_us and b > r.t_begin_us
+                                  for _, a, b in long_gc)]
+    print(f"[loadgen] garbage collection during the run: {len(gc_passes)} "
+          f"passes (generation 0/1/2: "
+          + "/".join(str(sum(1 for p in gc_passes if p[0] == g))
+                     for g in (0, 1, 2))
+          + f"), passes of 10 ms or more (generation, us): "
+          f"{[(g, round(b - a, 1)) for g, a, b in long_gc]}; requests "
+          f"slower than 20 ms: {len(slow)} of {len(report.requests)}, "
+          f"{len(hit)} of them in flight during such a pass")
+    print(f"[loadgen] latency table meta {table.meta}")
+    for r in table.rows:
+        where = (f"level {r['level']}" if r["source"] == "plan" else
+                 f"tile {r['tile']} (level {r['level']})"
+                 if r["source"] == "tile" else
+                 f"width {r['level_width']} fanin {r['fanin']}")
+        print(f"[loadgen] latency table {r['source']} {where}: "
+              f"{r['device_us']:.3f} us"
+              + (f" (prefix {r['prefix_us']:.3f} us)" if "prefix_us" in r
+                 else "") + f" at w_words {r['w_words']} on {card}")
+    sched_rows(torch, card, trained, out["offered_qps"], table)
+
+
+def sched_rows(torch, card, trained, offered_qps, table):
+    """The trained network under the scheduler: each backend with 1 and
+    2 replicas (a second engine of its own; ``least_slack``), open loop
+    at ``offered_qps`` and closed loop, 1,000 one-row requests of the
+    test split. qps, percentiles and occupancy come from an unprofiled
+    run, the device's idle share from a second, profiled run of the
+    same section; with one replica the bitplane aggregator feeds an
+    ``OnlineProfiler`` seeded from ``table``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench import loadgen as lg
+    from repro_torch.data.jsc import train_test
+    from repro_torch.obs import LatencyTable, OnlineProfiler
+    from repro_torch.serve import ReplicaSet
+    from repro_torch.serving.engine import LogicEngine
+    from repro_torch.synth import compile_device_plan
+
+    xte = train_test()[1][0]
+    xs = np.ascontiguousarray(xte[np.arange(1000) % xte.shape[0]],
+                              np.float32)
+    net = trained["lut_layer"][0].net
+    engines = {"gather": LogicEngine(net, 5, backend="gather",
+                                     device="cuda"),
+               "lut_layer": trained["lut_layer"][0],
+               "bitplane-cuda": trained["lut_eval"][0],
+               "bitplane-streamed": trained["lut_eval_streamed"][0]}
+    want = engines["gather"].classify(xs)
+    for b, eng in engines.items():
+        twin = LogicEngine(net, 5, backend=eng.backend, engine=eng.engine,
+                           device="cuda")
+        for n_rep in (1, 2):
+            prof = None
+            if n_rep == 1:
+                ex = eng.scheduler_executor()
+                if eng.aggregator is not None:
+                    est = table.estimate_plan_us(
+                        compile_device_plan(eng.bitnet.mapped))
+                    prof = OnlineProfiler(LatencyTable(
+                        rows=table.rows, meta=table.meta),
+                        predicted_us=est, sample_every=4)
+                    eng.aggregator.on_device_us = prof.observe
+            else:
+                ex = ReplicaSet([eng.scheduler_executor(),
+                                 twin.scheduler_executor()],
+                                policy="least_slack", n_features=16)
+            for loop in ("open", "closed"):
+                def go():
+                    if loop == "open":
+                        return lg.run_open_loop(ex, xs, offered_qps,
+                                                max_batch=256)
+                    return lg.run_closed_loop(ex, xs, max_batch=256)
+                got, snap = go()
+                require(np.array_equal(got, want), f"sched {b} x{n_rep} "
+                        f"{loop} loop: labels differ from classify")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    t0 = time.perf_counter()
+                    go()
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                busy = sum(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+                           for e in p.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+                print(f"[sched] trained {b} x{n_rep} {loop} loop: "
+                      f"{snap['qps']:.1f} qps p50 {snap['p50_us']:.1f} p95 "
+                      f"{snap['p95_us']:.1f} p99 {snap['p99_us']:.1f} us, "
+                      f"occupancy {snap['mean_batch_occupancy']:.4f} "
+                      f"({snap['n_batches']} batches); profiled run device "
+                      f"busy {busy:.1f} of {wall_us:.1f} us (idle share "
+                      f"{1.0 - busy / wall_us:.4f}) on {card}")
+            if prof is not None:
+                eng.aggregator.on_device_us = None
+                print(f"[sched] trained {b} x1 online profile "
+                      f"{prof.stats()} (wall us around classify_packed: "
+                      "host dispatch plus device)")
+
+
 def phase_kernels2(torch, errs):
     """Every kernel of the kernel-bench path against its plain version on
     the card: the bench's own inputs, and ragged shapes."""
@@ -1811,7 +2068,9 @@ def main() -> int:
     runs, batch = phase_serve(torch)
     rows = phase_timing(torch, runs, batch, errs, card)
     phase_profile(torch, runs, batch, card)
-    phase_profile(torch, phase_train(torch, card), batch, card, "trained ")
+    trained = phase_train(torch, card)
+    phase_profile(torch, trained, batch, card, "trained ")
+    phase_loadgen(torch, card, trained)
     inp = phase_kernels2(torch, errs)
     counts = phase_bench(torch)
     rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)

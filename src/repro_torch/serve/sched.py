@@ -32,8 +32,9 @@ result row per input row. Executors may additionally accept a
 ``deadline_us`` keyword (the tightest absolute deadline in the batch;
 detected by signature inspection) and may expose ``n_features`` so
 admission can reject wrong-width payloads before they poison a batch.
-``repro_torch.serve.aggregate.BitplaneAggregator`` satisfies the
-extended contract.
+``repro_torch.serve.aggregate.BitplaneAggregator`` and
+``repro_torch.serve.replica.ReplicaSet`` both satisfy the extended
+contract.
 """
 from __future__ import annotations
 

@@ -73,6 +73,13 @@ class LogicEngine:
         self._dense(np.zeros((self.max_batch, self.net.n_inputs),
                              np.float32))
 
+    @property
+    def aggregator(self):
+        """The bitplane backend's ``BitplaneAggregator`` (the scheduler
+        executor it hands out, with the ``on_device_us`` hook and the
+        occupancy ``publish``); ``None`` for the dense backends."""
+        return self._agg if self.backend == "bitplane" else None
+
     def _pad(self, x: np.ndarray) -> np.ndarray:
         """Zero rows up to ``max_batch``: one batch shape for every flush."""
         pad = self.max_batch - x.shape[0]

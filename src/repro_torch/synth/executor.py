@@ -35,7 +35,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import words_to_int32
 from repro_torch.kernels.spec import DEFAULT_SPEC, DEFAULT_TILE_ROWS
-from repro_torch.obs.trace import NULL_TRACER
 
 from .aig import lit_compl, lit_var, tt_expand
 from .lutmap import MappedNetwork
@@ -564,6 +563,11 @@ class BitplaneNetwork:
         self.mapped = mapped
         self.engine = engine
         self.spec = spec
+        # lazy import: this module loads during repro_torch.serve's init
+        # (via aggregate), while repro_torch.obs pulls
+        # repro_torch.serve.metrics; a module-level import here would
+        # close an import cycle
+        from repro_torch.obs.trace import NULL_TRACER
         self.tracer = NULL_TRACER
         self._plan = _compile_plan(mapped)
         self._exec = None

@@ -391,6 +391,72 @@ def test_trained_network_serves_identically_on_card(cuda_device):
         assert launch_counts()[kernel] > 0
 
 
+def _seeded_jsc_s_net():
+    """Full-width JSC-S from seeded weights, projected to its fanins."""
+    from repro_torch.configs.jsc import JSC_S
+    from repro_torch.models.mlp import final_masks, init_mlp, to_logic
+    model = init_mlp(JSC_S, torch.Generator().manual_seed(0))
+    model.set_masks(final_masks(JSC_S, model))
+    return to_logic(JSC_S, model)
+
+
+def test_kernelprof_on_the_served_plan_names_the_card(cuda_device):
+    """The latency table of the served JSC-S plan: the synthetic grid
+    and every level through the monolithic walk, every tile through the
+    streamed walk, timed by CUDA events; rows finite and non-negative,
+    both walks launched, the card named in ``meta``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import build_latency_table
+    from repro_torch.synth import compile_device_plan
+    from repro_torch.synth.executor import BitplaneNetwork
+    mapped = BitplaneNetwork.from_logic_network(
+        _seeded_jsc_s_net(), engine="numpy", device="cpu").mapped
+    dplan = compile_device_plan(mapped, tile_rows=32)
+    reset_launch_counts()
+    table = build_latency_table(dplan, iters=50, device=cuda_device)
+    counts = launch_counts()
+    assert counts["lut_eval"] > 0 and counts["lut_eval_streamed"] > 0
+    plan = [r for r in table.rows if r["source"] == "plan"]
+    tiles = [r for r in table.rows if r["source"] == "tile"]
+    assert len(plan) == dplan.n_levels and len(tiles) == dplan.tiles.n_tiles
+    for r in table.rows:
+        assert np.isfinite(r["device_us"]) and r["device_us"] >= 0
+        assert np.isfinite(r.get("prefix_us", 0.0))
+    assert all(r["prefix_us"] > 0 for r in plan + tiles)
+    assert table.meta["backend"] == "cuda"
+    assert table.meta["device"] == torch.cuda.get_device_name(cuda_device)
+    assert table.meta["power_limit"]
+    assert table.estimate_plan_us(dplan) > 0
+
+
+def test_two_streamed_replicas_under_the_scheduler_match_classify(
+        cuda_device):
+    """Seeded JSC-S on two ``cuda-streamed`` replicas behind the
+    threaded scheduler (round robin, so both serve): every label equals
+    the CPU gather path's."""
+    from repro_torch.data.jsc import train_test
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (MicroBatchScheduler, SchedConfig,
+                                   build_logic_replicas)
+    from repro_torch.serving.engine import LogicEngine
+    net = _seeded_jsc_s_net()
+    x = train_test()[1][0][:700]
+    want = LogicEngine(net, 5, device="cpu").classify(x)
+    rs = build_logic_replicas(net, 5, n_replicas=2, backend="bitplane",
+                              policy="rr", engine="cuda-streamed",
+                              device=cuda_device)
+    s = MicroBatchScheduler(rs, SchedConfig(max_batch=256,
+                                            max_wait_us=200.0))
+    reset_launch_counts()
+    s.start()
+    futs = [s.submit(x[i]) for i in range(x.shape[0])]
+    s.stop(drain=True)
+    got = np.array([int(f.result(timeout=30)) for f in futs])
+    np.testing.assert_array_equal(got, want)
+    assert launch_counts()["lut_eval_streamed"] > 0
+    assert all(r["served"] > 0 and r["failures"] == 0 for r in rs.stats())
+
+
 @pytest.mark.parametrize("n_words", [1, 257])
 def test_aig_sim_walk_and_route_match_plain(cuda_device, n_words):
     rng = np.random.default_rng(n_words)

@@ -40,10 +40,15 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("module", ["repro_torch.train.jsc_trainer",
                                     "repro_torch.core.lutmap",
-                                    "repro_torch.bench.ablations"])
+                                    "repro_torch.bench.ablations",
+                                    "repro_torch.obs",
+                                    "repro_torch.serve",
+                                    "repro_torch.bench.loadgen",
+                                    "repro_torch.launch.serve"])
 def test_training_modules_import_without_jax(module):
-    """Each module of the training slice, alone in a fresh interpreter,
-    leaves JAX and the reference package out of ``sys.modules``."""
+    """Each module of the training and serving-at-scale slices, alone in
+    a fresh interpreter, leaves JAX and the reference package out of
+    ``sys.modules``."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -87,4 +92,7 @@ def test_entry_points_default_to_cuda():
         main(["--mode", "logic", "--requests", "1"])
     with pytest.raises(NoCudaDeviceError):   # the launcher's train path
         main(["--mode", "logic", "--train-steps", "2", "--requests", "1"])
+    with pytest.raises(NoCudaDeviceError):   # the scheduled path
+        main(["--mode", "logic", "--params", "unused.npz", "--sched",
+              "--replicas", "2", "--slo-us", "2000,20000"])
     assert resolve_device("cpu") == torch.device("cpu")
