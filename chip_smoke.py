@@ -64,6 +64,25 @@ Phases, each printing its own lines:
                 the trained model's argmax on the card and to the CPU
                 gather path; and the profile phase's split of one
                 served batch of the trained network;
+     verify   — the verification slice on the train phase's network:
+                ``check_synth_pipeline(net, formal=True)`` with every
+                SAT verdict UNSAT, ``preflight`` of both walks' networks
+                with the plan check's branch at the serving batch (W =
+                8) equal to the launch each wrapper chose at that batch
+                (``last_plan``, read at the call); plans corrupted three
+                ways (a leaf at the dump row, an output wire past the
+                plane, an INIT word other than 0 / ~0) refused by
+                ``compile_device_plan(verify=True)`` and ``preflight``
+                with no kernel launched; the streamed walk at every
+                autotune candidate's geometry bit-exact against its
+                plain version, the sweep's times (CUDA events behind a
+                device spin) into a temporary cache, and a new executor
+                taking the winner and serving ``classify``'s labels; the
+                launcher's ``--check`` on bitplane with cuda and
+                cuda-streamed, preflight OK and labels unchanged; and
+                the Table 1 twin (``repro_torch.bench.table1_jsc``) on
+                JSC-S at the launcher's 400 steps, its netlist
+                equivalent on the card;
   8. loadgen  — the serving-at-scale path, from every launch count at
                 0: ``repro_torch.bench.loadgen.run`` in its fast mode
                 (JSC-S trained 150 steps, 1,000 requests a section) on
@@ -159,6 +178,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1098,7 +1118,7 @@ def phase_profile(torch, runs, batch, card, label=""):
 def phase_train(torch, card):
     """The training front end on the card, then the trained network
     served through the three kernels. Returns the served engines as
-    ``phase_serve`` does."""
+    ``phase_serve`` does, and the trained model."""
     import copy
 
     import numpy as np
@@ -1230,7 +1250,194 @@ def phase_train(torch, card):
           f"{time.perf_counter() - t0:.1f}s; CPU gather acc "
           f"{float(np.mean(want == yte[: x.shape[0]])):.4f} on "
           f"{x.shape[0]} rows == the trained MLP's argmax on the card")
-    return serve_engines(torch, net, reqs, want, "[train] served trained")
+    return (serve_engines(torch, net, reqs, want, "[train] served trained"),
+            res.model)
+
+
+def phase_verify(torch, card, trained, model):
+    """The verification slice on the trained network of the train phase
+    (``trained`` as ``serve_engines`` returns it, ``model`` its MLP):
+    the check pipeline with SAT proofs and the serving preflight, the
+    plan check's branch against each walk's own launch at the serving
+    batch, corrupted plans refused with no launch, the streamed walk's
+    autotune sweep on the card and a new executor taking its winner, the
+    launcher's ``--check`` on both walks, and the Table 1 twin on JSC-S
+    with the launcher's step count."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    from repro_torch.bench.table1_jsc import run_one
+    from repro_torch.check import (CheckFailure, check_synth_pipeline,
+                                   preflight)
+    from repro_torch.check.plan_check import SERVE_WORDS
+    from repro_torch.configs.jsc import JSC_S
+    from repro_torch.data.jsc import train_test
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.lut_eval import (autotune, lut_eval,
+                                              lut_eval_streamed)
+    from repro_torch.kernels.spec import DEFAULT_SPEC
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serving.engine import LogicEngine
+    from repro_torch.synth import compile_device_plan
+    from repro_torch.synth.executor import (BitplaneNetwork,
+                                            _CudaStreamedExecutor)
+    from repro_torch.weights import save_params_npz
+
+    t_phase = time.perf_counter()
+    streamed = trained["lut_eval_streamed"][0].bitnet
+    mono = trained["lut_eval"][0].bitnet
+    net = streamed.net
+    (_, _), (xte, _) = train_test()
+    x = xte[: N_REQUESTS * ROWS_PER_REQUEST]
+    want = LogicEngine(net, JSC_S.n_classes, backend="gather",
+                       device="cpu").classify(x)
+
+    # the check pipeline, SAT proofs included, and the serving preflight
+    t0 = time.perf_counter()
+    rep = check_synth_pipeline(net=net, formal=True)
+    require(rep.ok, "check_synth_pipeline(formal=True) on the trained "
+            "network:\n" + rep.format())
+    for key in sorted(k for k in rep.info if k.startswith("formal[")):
+        st = rep.info[key]
+        print(f"[verify] formal {key[7:-1]}: {st['verdict']} "
+              f"({st.get('outputs', '?')} outputs, {st.get('queries', 0)} "
+              f"SAT queries, {st.get('conflicts', 0)} conflicts)")
+        require(st["verdict"] == "UNSAT", f"formal {key}: {st['verdict']}")
+    sw = rep.info["sat_sweep"]
+    print(f"[verify] {rep.format()} ({rep.info['n_luts']} LUTs, depth "
+          f"{rep.info['depth']}; sat sweep {sw['dup_lut_outputs']} "
+          f"duplicate LUT outputs) in {time.perf_counter() - t0:.1f}s")
+    words = streamed.pack_inputs(x[: 256])
+    require(tuple(words.shape) == (streamed.mapped.n_pis, SERVE_WORDS),
+            f"serving batch words {tuple(words.shape)}")
+    for walk, bn, fn in (("lut_eval", mono, lut_eval),
+                         ("lut_eval_streamed", streamed, lut_eval_streamed)):
+        pre = preflight(bn)
+        require(pre.ok, f"preflight ({bn.engine}):\n" + pre.format())
+        branch = pre.info[walk]
+        bn.executor.plane(words)        # the walk's own launch at W = 8
+        torch.cuda.synchronize()
+        took = fn.last_plan
+        require(took == (branch["block_w"], branch["plane"] == "shared",
+                         branch["chunk"]),
+                f"{walk}: the plan check reports {branch}, the wrapper "
+                f"launched (block_w, plane in shared, chunk) = {took}")
+        print(f"[verify] preflight {bn.engine}: OK ({pre.checked} checks); "
+              f"{walk} at W = {SERVE_WORDS}: plane in {branch['plane']} "
+              f"memory, plan {branch['plan']} (chunk {branch['chunk']}), "
+              f"{branch['block_w']} words a block, {branch['smem_bytes']} "
+              f"bytes of shared memory == the wrapper's launch {took}")
+
+    # a corrupted plan is refused before any launch
+    n_wires = 1 + mono.mapped.n_pis + mono.mapped.n_luts
+    before = launch_counts()
+    for code, corrupt in (
+            ("leaf-range", lambda p: p.levels[0].leaf_idx.__setitem__(
+                (0, 0), n_wires)),
+            ("out-range", lambda p: p.levels[-1].out_wires.__setitem__(
+                0, n_wires + 5)),
+            ("tt-encoding", lambda p: p.levels[0].tt_bits.__setitem__(
+                (0, 0), 5))):
+        bad = copy.copy(mono)
+        bad._plan = copy.deepcopy(mono._plan)
+        corrupt(bad._plan)
+        try:
+            compile_device_plan(bad.mapped, bad._plan, verify=True)
+            raise SmokeFailure(f"compile_device_plan(verify=True) took a "
+                               f"plan with a {code} fault")
+        except CheckFailure as e:
+            got = sorted({i.code for i in e.report.errors})
+        pre = preflight(bad)
+        require(code in got and not pre.ok
+                and code in {i.code for i in pre.errors},
+                f"corrupted plan ({code}): verify gave {got}, preflight "
+                f"{pre.format()}")
+        print(f"[verify] corrupted plan ({code}): compile_device_plan"
+              f"(verify=True) raised CheckFailure {got}; preflight FAIL")
+    require(launch_counts() == before, f"a kernel launched while checking "
+            f"corrupted plans: {before} -> {launch_counts()}")
+
+    # the streamed walk's autotune sweep, into a temporary cache
+    cache_dir = tempfile.mkdtemp(prefix="autotune-")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cache_dir,
+                                                      "tiles.json")
+    try:
+        for tile_rows, block_w in autotune.DEFAULT_CANDIDATES:
+            ex = _CudaStreamedExecutor(streamed, spec=DEFAULT_SPEC.with_tile(
+                tile_rows=tile_rows, block_w=block_w))
+            n = lut_eval_streamed.launches
+            got = ex.plane(words)
+            torch.cuda.synchronize()
+            require(lut_eval_streamed.launches == n + 1
+                    and torch.equal(got, ex.plane(words, plain=True)),
+                    f"streamed plane at tile_rows {tile_rows}, block_w "
+                    f"{block_w} differs from its plain version")
+        timings = []
+        best = autotune.autotune_streamed(streamed, words, timings=timings)
+        for tile_rows, block_w, us in timings:
+            print(f"[verify] autotune tile_rows {tile_rows:3d} block_w "
+                  f"{block_w:3d}: {us:.3f} us a batch of {SERVE_WORDS} "
+                  f"words (plane bit-exact) on {card}")
+        print(f"[verify] autotune winner tile_rows {best[0]} block_w "
+              f"{best[1]}: {best[2]:.3f} us")
+        tuned = BitplaneNetwork(net, streamed.mapped, engine="cuda-streamed",
+                                device="cuda")
+        tex = tuned.executor
+        require((tex.spec.tile.tile_rows, tex.spec.tile.block_w,
+                 tex.tp.tile_rows) == (best[0], best[1], best[0]),
+                f"a new streamed executor took {tex.spec.tile}, not the "
+                f"winner {best[:2]}")
+        n = lut_eval_streamed.launches
+        labels = tuned.classify(x, JSC_S.n_classes)
+        require(lut_eval_streamed.launches > n
+                and np.array_equal(labels, want),
+                "the tuned streamed executor's labels differ from classify's "
+                f"({int((labels != want).sum())} rows)")
+        print(f"[verify] new executor took tile_rows {best[0]} block_w "
+              f"{best[1]} from the cache; {labels.shape[0]} labels == "
+              "classify's (CPU gather)")
+    finally:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = ""
+
+    # the launcher's --check on both walks, serving the trained weights
+    npz = os.path.join(cache_dir, "jsc_s.npz")
+    save_params_npz(npz, model)
+    for engine, kernel in (("cuda", "lut_eval"),
+                           ("cuda-streamed", "lut_eval_streamed")):
+        out = serve_main(["--mode", "logic", "--backend", "bitplane",
+                          "--engine", engine, "--params", npz, "--check",
+                          "--requests", str(N_REQUESTS)])
+        require(out["preflight"].ok and np.array_equal(out["labels"], want)
+                and out["launches"][kernel] > 0,
+                f"--check with engine {engine}: preflight "
+                f"{out['preflight'].ok}, labels differ in "
+                f"{int((out['labels'] != want).sum())} rows, launches "
+                f"{out['launches']}")
+        print(f"[verify] launcher --check --engine {engine}: preflight OK, "
+              f"{out['labels'].shape[0]} labels unchanged, launches "
+              f"{out['launches']}")
+
+    # the Table 1 twin on JSC-S, the launcher's step count
+    t0 = time.perf_counter()
+    n = lut_eval_streamed.launches
+    r = run_one("jsc-s", steps=TRAIN_STEPS, device="cuda")
+    t_table = time.perf_counter() - t0
+    require(r["synth"]["equivalent"] and lut_eval_streamed.launches > n,
+            f"Table 1 twin: mapped netlist not equivalent on the card ({r})")
+    print(f"[verify] table1 jsc-s ({TRAIN_STEPS} steps): acc "
+          f"{r['accuracy']:.4f} (LogicNets {r['logicnets_accuracy']:.4f}); "
+          f"NullaNet {r['nullanet']['luts']} LUTs {r['nullanet']['ffs']} FFs "
+          f"depth {r['nullanet']['depth']} against LogicNets "
+          f"{r['logicnets_baseline']['luts']} LUTs "
+          f"{r['logicnets_baseline']['ffs']} FFs: LUTs "
+          f"{r['lut_reduction_x']}x fewer, fmax {r['fmax_increase_x']}x, "
+          f"latency {r['latency_reduction_x']}x; whole network "
+          f"{r['synth']['luts']} LUTs, sat sweep "
+          f"{r['synth']['sat_sweep']['dup_lut_outputs']} duplicate pairs; "
+          f"{t_table:.1f}s")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    print(f"[verify] phase {time.perf_counter() - t_phase:.1f}s")
 
 
 LOADGEN_BACKENDS = ("gather", "lut_layer", "bitplane-cuda",
@@ -2050,6 +2257,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # no persisted tile geometry outside the verify phase's own cache
+    os.environ["REPRO_AUTOTUNE_CACHE"] = ""
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
@@ -2068,7 +2277,8 @@ def main() -> int:
     runs, batch = phase_serve(torch)
     rows = phase_timing(torch, runs, batch, errs, card)
     phase_profile(torch, runs, batch, card)
-    trained = phase_train(torch, card)
+    trained, model = phase_train(torch, card)
+    phase_verify(torch, card, trained, model)
     phase_profile(torch, trained, batch, card, "trained ")
     phase_loadgen(torch, card, trained)
     inp = phase_kernels2(torch, errs)

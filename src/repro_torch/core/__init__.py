@@ -10,6 +10,8 @@ tables, two-level minimization and logic-network inference.
     lutmap     — 6-LUT mapping + fmax/FF cost model, structural report.
     logic_infer— torch execution of compiled logic networks, hardware
                  report.
+    netlist    — Verilog emission of a compiled network (pre- and
+                 post-mapping).
 """
 from . import (espresso, fcp, lutcost, lutmap, quant,  # noqa: F401
                truthtable)

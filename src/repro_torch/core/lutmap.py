@@ -133,25 +133,27 @@ def latency_ns(network: MapReport, n_stages: int) -> float:
 # Structural (measured) mapping via repro_torch.synth — analytic fallback
 # ---------------------------------------------------------------------------
 
-def structural_report(net):
+def structural_report(net, effort: int = 1, pipeline: bool = True):
     """Measured per-layer 6-LUT mapping of a compiled ``LogicNetwork``.
 
     Runs the synthesis pipeline on the host (SOP -> AIG -> balance/
     rewrite -> FlowMap-style 6-LUT mapping, ``repro_torch.synth``) on
-    every layer and
-    aggregates with the same retiming/FF model as the analytic path, so
-    the two reports are directly comparable. Returns
-    ``(MapReport, per_layer, "synth")``; on any synthesis failure falls
-    back to the analytic estimate and tags it ``"analytic"``.
+    every layer (``effort`` balance/rewrite rounds) and aggregates with
+    the same retiming/FF model as the analytic path, so the two reports
+    are directly comparable; ``pipeline=False`` counts no pipeline FFs.
+    Returns ``(MapReport, per_layer, "synth")``; on any synthesis
+    failure falls back to the analytic estimate and tags it
+    ``"analytic"``.
     """
     try:
         from repro_torch.synth import layer_to_aig, synthesize
 
         per_layer = []
         for lt in net.layers:
-            mapped = synthesize(layer_to_aig(lt), k=LUT_K)
-            per_layer.append(mapped.report(lt.out_spec.code_bits
-                                           * lt.n_neurons))
+            mapped = synthesize(layer_to_aig(lt), effort=effort, k=LUT_K)
+            out_bits_total = lt.out_spec.code_bits * lt.n_neurons
+            ffs = out_bits_total if pipeline else 0
+            per_layer.append(mapped.report(ffs))
         return map_network(per_layer), per_layer, "synth"
     except Exception as e:
         # loudly: downstream reports tag the backend, but a silent switch

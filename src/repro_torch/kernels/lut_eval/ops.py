@@ -5,7 +5,9 @@ walks the level-major ``TilePlan``. Each takes int32 tensors (uint32
 words as int32 views, as the reference does), checks them, allocates
 the plane and launches the kernel on torch's current stream for CUDA
 tensors, or runs the plain version (``ref.py``) for CPU tensors. Each
-counts its kernel launches in ``.launches``.
+counts its kernel launches in ``.launches`` and keeps the launch it
+chose last (word tile, plane in shared memory?, chunk) in
+``.last_plan``.
 """
 from __future__ import annotations
 
@@ -211,10 +213,12 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
         lw, kk, w, bw, int(use_smem), chunk, stream_of(dev))
     build.check(err, "lut_eval")
     lut_eval.launches += 1
+    lut_eval.last_plan = (bw, use_smem, chunk)
     return out
 
 
 lut_eval.launches = 0
+lut_eval.last_plan = None       # (word tile, plane in shared memory?, chunk)
 
 
 def lut_eval_streamed(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
@@ -267,7 +271,9 @@ def lut_eval_streamed(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
         stream_of(dev))
     build.check(err, "lut_eval_streamed")
     lut_eval_streamed.launches += 1
+    lut_eval_streamed.last_plan = (bw, use_smem, chunk)
     return out
 
 
 lut_eval_streamed.launches = 0
+lut_eval_streamed.last_plan = None

@@ -12,6 +12,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
       --train-steps 20 --device cpu
 
+  # check the mapped netlist and its plan before serving it (exit 2 if
+  # the preflight finds an error)
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
+      --backend bitplane --device cpu --train-steps 20 --check
+
   # micro-batch scheduler with 2 replicas and two SLO lanes, traced;
   # then the trace's per-request phase breakdown
   PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
@@ -41,10 +46,12 @@ dispatch, ``least_slack`` when ``--slo-us`` gives lane budgets). With
 instead (which trains its own JSC-S for ``--train-steps``, as the
 reference's does). ``--trace PATH`` writes a Chrome trace of the
 request lifecycle; ``--metrics-port`` serves the metrics registry on
-127.0.0.1 for the run (``/metrics``, ``/metrics.json``). The launcher
-prints the test accuracy after training, the mapped LUT count and
-depth, the served accuracy, p50/p95 latency and each kernel's launches
-during serving.
+127.0.0.1 for the run (``/metrics``, ``/metrics.json``). ``--check``
+runs ``repro_torch.check.preflight`` on the bitplane backend's netlist
+before serving and exits with status 2 if it finds an error. The
+launcher prints the test accuracy after training, the mapped LUT count
+and depth, the served accuracy, p50/p95 latency and each kernel's
+launches during serving.
 """
 from __future__ import annotations
 
@@ -67,7 +74,8 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
                 loadgen: Optional[str] = None,
                 slo_us: Optional[Sequence[float]] = None,
                 trace: Optional[str] = None,
-                metrics_port: Optional[int] = None) -> dict:
+                metrics_port: Optional[int] = None,
+                check: bool = False) -> dict:
     from repro_torch.configs.jsc import JSC
     from repro_torch.data.jsc import train_test
     from repro_torch.kernels import launch_counts
@@ -99,6 +107,27 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
         print(f"  mapped: {eng.bitnet.mapped.n_luts} LUTs, "
               f"depth {eng.bitnet.mapped.depth} (engine {eng.engine}, "
               f"device {dev})")
+    if check:
+        # preflight: refuse to serve a netlist that fails lint, plan
+        # validation, or the valid-code equivalence spot-check
+        from repro_torch.check import preflight
+        if backend != "bitplane":
+            print("[serve] --check: nothing to verify for backend "
+                  f"{backend!r} (mapped-netlist checks need --backend "
+                  f"bitplane)")
+        else:
+            rep = preflight(eng.bitnet)
+            print(rep.format())
+            for walk in ("lut_eval", "lut_eval_streamed"):
+                b = rep.info.get(walk)
+                if b:
+                    print(f"  {walk}: plane in {b['plane']} memory, plan "
+                          f"{b['plan']} (chunk {b['chunk']}), "
+                          f"{b['block_w']} words a block, "
+                          f"{b['smem_bytes']} bytes of shared memory")
+            if not rep.ok:
+                raise SystemExit(2)
+            out["preflight"] = rep
     (_, _), (xte, yte) = train_test()
 
     # pull-based metrics endpoint (Prometheus text exposition on
@@ -135,12 +164,12 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
                 write_chrome_trace(trace, tracer)
                 print(f"[serve] trace: {tracer.n_recorded} events -> "
                       f"{trace}")
-            acc = float(np.mean(np.concatenate(results)
-                                == yte[: sum(len(r) for r in reqs)]))
+            labels = np.concatenate(results)
+            acc = float(np.mean(labels == yte[: labels.shape[0]]))
             print(f"[serve] {n_requests} requests: acc={acc:.4f} "
                   f"p50={stats['p50_us']:.1f}us "
                   f"p95={stats['p95_us']:.1f}us")
-            stats = {**stats, "acc": acc}
+            stats = {**stats, "acc": acc, "labels": labels}
         launches = {k: v - before[k] for k, v in launch_counts().items()}
         print("[serve] kernel launches: " + ", ".join(
             f"{k}={v}" for k, v in launches.items()))
@@ -298,6 +327,12 @@ def main(argv=None):
                          "Prometheus text exposition on /metrics, raw "
                          "registry snapshot on /metrics.json (0 = "
                          "ephemeral port, printed at startup)")
+    ap.add_argument("--check", action="store_true",
+                    help="repro_torch.check preflight before serving "
+                         "(bitplane backend): netlist lint, DevicePlan "
+                         "validation with both walks' shared memory at "
+                         "the serving batch, mapped<->plan miter, "
+                         "valid-code equivalence; exit 2 on any error")
     args = ap.parse_args(argv)
     slo_us = (tuple(float(v) for v in args.slo_us.split(","))
               if args.slo_us else None)
@@ -307,7 +342,8 @@ def main(argv=None):
                        device=args.device, sched=args.sched,
                        replicas=args.replicas, qps=args.qps,
                        loadgen=args.loadgen, slo_us=slo_us,
-                       trace=args.trace, metrics_port=args.metrics_port)
+                       trace=args.trace, metrics_port=args.metrics_port,
+                       check=args.check)
 
 
 if __name__ == "__main__":

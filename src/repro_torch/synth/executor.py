@@ -18,7 +18,8 @@ the name up in the ``repro_torch.synth.executors`` registry. Built-ins
     ``compile_tile_plan`` renumbers the wire plane level-major and the
     streamed ``lut_eval_streamed`` kernel walks its tiles.
 
-All engines are bit-identical on every reachable input. The device
+All engines are bit-identical on every reachable input. ``emit_verilog``
+writes the mapped netlist as structural Verilog. The device
 engines quantize, pack, evaluate, complement, decode and take the
 per-request argmax on the engine's device, so only the labels come
 back to the host. On ``device="cpu"`` the device engines run the
@@ -280,12 +281,17 @@ class DevicePlan:
 
 def compile_device_plan(mapped: MappedNetwork,
                         plan: Optional[_Plan] = None,
+                        verify=False,
                         tile_rows: Optional[int] = None) -> DevicePlan:
     """Stack the per-level arrays of ``_compile_plan`` into uniform-width
     tensors ready to ship to the device.
 
     ``tile_rows`` additionally attaches the streamed tile schedule
-    (``DevicePlan.tiles``) with that slot-tile size."""
+    (``DevicePlan.tiles``) with that slot-tile size. ``verify=True``
+    runs ``repro_torch.check``'s plan validator plus a mapped<->plan
+    miter on the result and raises ``CheckFailure`` with the first
+    counterexample on any disagreement (``verify="formal"``: SAT proofs
+    for wide cones). Both are host code: nothing is launched."""
     if plan is None:
         plan = _compile_plan(mapped)
     k = mapped.k
@@ -305,6 +311,9 @@ def compile_device_plan(mapped: MappedNetwork,
                        mapped.n_pis, n_wires, k)
     if tile_rows is not None:
         dplan.tiles = compile_tile_plan(plan, mapped.n_pis, k, tile_rows)
+    if verify:
+        from repro_torch.check.pipeline import verify_plan
+        verify_plan(mapped, dplan, formal=(verify == "formal"))
     return dplan
 
 
@@ -499,15 +508,22 @@ class _CudaExecutor(_TorchExecutor):
 class _CudaStreamedExecutor(_TorchExecutor):
     """The streamed pipeline over a ``TilePlan``: one
     ``lut_eval_streamed`` launch walks every tile, level by level
-    (reference engine ``"pallas-streamed"``). The tile geometry is the
-    spec's ``tile_rows``."""
+    (reference engine ``"pallas-streamed"``).
+
+    Tile geometry comes from, in priority order: an explicit ``spec``,
+    the persisted autotune cache (keyed by the plan's sha1 fingerprint
+    and the device's name, see ``repro_torch.kernels.lut_eval.autotune``),
+    or the spec defaults.
+    """
 
     name = "cuda-streamed"
 
     def __init__(self, bitnet: "BitplaneNetwork", spec=None):
         super().__init__(bitnet, spec=spec)
         from repro_torch.kernels.lut_eval import level_starts
+        from repro_torch.kernels.lut_eval.autotune import tuned_spec
         dp = compile_device_plan(bitnet.mapped, bitnet._plan)
+        self.spec = tuned_spec(dp, self.device, spec)
         tp = compile_tile_plan(bitnet._plan, dp.n_pis, dp.k,
                                self.spec.tile.tile_rows)
         dp.tiles = tp
@@ -579,11 +595,20 @@ class BitplaneNetwork:
     @classmethod
     def from_logic_network(cls, net, effort: int = 1, k: int = 6,
                            engine: Optional[str] = None, device=None,
-                           spec=None) -> "BitplaneNetwork":
+                           spec=None, verify=False) -> "BitplaneNetwork":
+        """``verify=True`` miters every synthesis stage
+        (``synthesize(verify=...)``) and runs ``repro_torch.check``'s
+        serving preflight on the result; ``CheckFailure`` on any error."""
         from . import synthesize        # lazy: package init imports us
         from .from_sop import network_to_aig
-        return cls(net, synthesize(network_to_aig(net), effort=effort, k=k),
-                   engine=engine, device=device, spec=spec)
+        bn = cls(net, synthesize(network_to_aig(net), effort=effort, k=k,
+                                 verify=verify),
+                 engine=engine, device=device, spec=spec)
+        if verify:
+            from repro_torch.check.pipeline import preflight
+            from repro_torch.check.report import require_ok
+            require_ok(preflight(bn))
+        return bn
 
     @property
     def executor(self):
@@ -628,3 +653,53 @@ class BitplaneNetwork:
                 "n_levels": len(self._plan.levels)}):
             return self.executor.classify_packed(pi_words, n_rows,
                                                  n_classes)
+
+
+# ---------------------------------------------------------------------------
+# Verilog emission of the mapped netlist
+# ---------------------------------------------------------------------------
+
+def emit_verilog(mapped: MappedNetwork, name: str = "mapped_logic") -> str:
+    """Structural Verilog: one INIT-vector-indexed assign per LUT (the
+    textual form of a LUT6 instance, synthesizable and simulable). The
+    text is the reference package's for the same netlist, its header
+    line included."""
+    k = mapped.k
+    lut_pos = {l.root: i for i, l in enumerate(mapped.luts)}
+
+    def wname(node: int) -> str:
+        w = _wire_of(mapped, node, lut_pos)
+        if w == _CONST_WIRE:
+            return "1'b0"
+        if w <= mapped.n_pis:
+            return f"x[{w - 1}]"
+        return f"n{w}"
+
+    lines = [
+        f"// {name}: {mapped.n_luts} LUT{k}s, depth {mapped.depth}",
+        f"// generated by repro.synth (AIG -> rewrite -> {k}-LUT map)",
+        f"module {name} (",
+        f"  input  wire [{mapped.n_pis - 1}:0] x,",
+        f"  output wire [{len(mapped.outputs) - 1}:0] y",
+        ");",
+    ]
+    for i, l in enumerate(mapped.luts):
+        m = len(l.leaves)
+        tt = tt_expand(l.tt, m, k)
+        init = f"{1 << k}'h{tt:0{(1 << k) // 4}x}"
+        ins = [wname(x) for x in l.leaves]
+        ins += ["1'b0"] * (k - m)            # pad unused select inputs
+        sel = ", ".join(reversed(ins))       # MSB first in concatenation
+        w = mapped.n_pis + 1 + i
+        lines.append(f"  wire n{w};")
+        lines.append(f"  wire [{(1 << k) - 1}:0] n{w}_init = {init};  // LUT{k}")
+        lines.append(f"  assign n{w} = n{w}_init[{{{sel}}}];")
+    for i, o in enumerate(mapped.outputs):
+        inv = "~" if lit_compl(o) else ""
+        src = wname(lit_var(o))
+        if src == "1'b0" and inv:
+            lines.append(f"  assign y[{i}] = 1'b1;")
+        else:
+            lines.append(f"  assign y[{i}] = {inv}{src};")
+    lines.append("endmodule")
+    return "\n".join(lines)

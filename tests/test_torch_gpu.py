@@ -429,6 +429,83 @@ def test_kernelprof_on_the_served_plan_names_the_card(cuda_device):
     assert table.estimate_plan_us(dplan) > 0
 
 
+def test_autotune_sweep_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """The streamed walk's sweep over the seeded JSC-S plan at the
+    serving batch (8 words): every candidate's plane bit-exact against
+    the plain version at its tile_rows, every time positive, the winner
+    persisted under the card's name and taken by an executor built
+    without a spec, whose labels are ``classify``'s on the CPU."""
+    from repro_torch.check import plan_fingerprint, preflight
+    from repro_torch.kernels.lut_eval import autotune
+    from repro_torch.synth.executor import (BitplaneNetwork,
+                                            _CudaStreamedExecutor)
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "t.json"))
+    net = _seeded_jsc_s_net()
+    bn = BitplaneNetwork.from_logic_network(net, engine="cuda-streamed",
+                                            device=cuda_device)
+    x = np.random.default_rng(0).normal(size=(256, 16)).astype(np.float32)
+    words = bn.pack_inputs(x)
+    assert words.shape[1] == 8
+    for tile_rows, block_w in autotune.DEFAULT_CANDIDATES:
+        ex = _CudaStreamedExecutor(bn, spec=DEFAULT_SPEC.with_tile(
+            tile_rows=tile_rows, block_w=block_w))
+        launches = lut_eval_streamed.launches
+        got = ex.plane(words)
+        torch.cuda.synchronize()
+        assert lut_eval_streamed.launches == launches + 1
+        assert torch.equal(got, ex.plane(words, plain=True)), tile_rows
+    timings = []
+    best = autotune.autotune_streamed(bn, words, iters=20, timings=timings)
+    assert len(timings) == len(autotune.DEFAULT_CANDIDATES)
+    assert all(np.isfinite(t[2]) and t[2] > 0 for t in timings)
+    assert best == min(timings, key=lambda t: t[2])
+    dp = synth.compile_device_plan(bn.mapped, bn._plan)
+    assert autotune.lookup(plan_fingerprint(dp),
+                           torch.cuda.get_device_name(cuda_device)) == \
+        best[:2]
+    tuned = BitplaneNetwork(net, bn.mapped, engine="cuda-streamed",
+                            device=cuda_device)
+    ex = tuned.executor
+    assert (ex.spec.tile.tile_rows, ex.spec.tile.block_w) == best[:2]
+    want = BitplaneNetwork(net, bn.mapped, engine="numpy",
+                           device="cpu").classify(x, 5)
+    np.testing.assert_array_equal(tuned.classify(x, 5), want)
+    rep = preflight(tuned)
+    assert rep.ok and rep.info["tile_rows"] == best[0]
+
+
+def test_corrupted_plan_is_refused_before_any_launch(cuda_device):
+    """A leaf at the dump row, an output wire out of range or an INIT
+    word other than 0 / ~0: ``compile_device_plan(verify=True)`` raises
+    and the preflight of a network serving that plan fails, with no
+    kernel launched."""
+    import copy
+    from repro_torch.check import CheckFailure, preflight
+    from repro_torch.kernels import launch_counts
+    from repro_torch.synth.executor import BitplaneNetwork
+    bn = BitplaneNetwork.from_logic_network(
+        _seeded_jsc_s_net(), engine="cuda", device=cuda_device)
+    n_wires = 1 + bn.mapped.n_pis + bn.mapped.n_luts
+    before = launch_counts()
+    for code, corrupt in (
+            ("leaf-range", lambda p: p.levels[0].leaf_idx.__setitem__(
+                (0, 0), n_wires)),
+            ("out-range", lambda p: p.levels[1].out_wires.__setitem__(
+                0, n_wires + 5)),
+            ("tt-encoding", lambda p: p.levels[0].tt_bits.__setitem__(
+                (0, 0), 5))):
+        bad = copy.copy(bn)
+        bad._plan = copy.deepcopy(bn._plan)
+        corrupt(bad._plan)
+        with pytest.raises(CheckFailure) as ei:
+            synth.compile_device_plan(bad.mapped, bad._plan, verify=True)
+        assert code in {i.code for i in ei.value.report.errors}
+        rep = preflight(bad)
+        assert not rep.ok and code in {i.code for i in rep.errors}
+    assert launch_counts() == before
+    assert preflight(bn).ok
+
+
 def test_two_streamed_replicas_under_the_scheduler_match_classify(
         cuda_device):
     """Seeded JSC-S on two ``cuda-streamed`` replicas behind the

@@ -44,11 +44,19 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.obs",
                                     "repro_torch.serve",
                                     "repro_torch.bench.loadgen",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.check",
+                                    "repro_torch.check.sat",
+                                    "repro_torch.check.__main__",
+                                    "repro_torch.kernels.lut_eval.autotune",
+                                    "repro_torch.core.netlist",
+                                    "repro_torch.bench.table1_jsc",
+                                    "repro_torch.examples.quickstart",
+                                    "repro_torch.examples.serve_logic"])
 def test_training_modules_import_without_jax(module):
-    """Each module of the training and serving-at-scale slices, alone in
-    a fresh interpreter, leaves JAX and the reference package out of
-    ``sys.modules``."""
+    """Each module of the training, serving-at-scale and verification
+    slices, alone in a fresh interpreter, leaves JAX and the reference
+    package out of ``sys.modules``."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -95,4 +103,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(NoCudaDeviceError):   # the scheduled path
         main(["--mode", "logic", "--params", "unused.npz", "--sched",
               "--replicas", "2", "--slo-us", "2000,20000"])
+    with pytest.raises(NoCudaDeviceError):   # the launcher's --check
+        main(["--mode", "logic", "--backend", "bitplane", "--check"])
+    from repro_torch.bench.table1_jsc import run as table1
+    from repro_torch.check.__main__ import main as check_main
+    from repro_torch.examples import quickstart, serve_logic
+    for entry in (lambda: check_main(["--fast"]),
+                  lambda: check_main(["--static"]),
+                  lambda: table1(steps=1, archs=("jsc-s",)),
+                  lambda: quickstart.main([]),
+                  lambda: serve_logic.main([])):
+        with pytest.raises(NoCudaDeviceError):
+            entry()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -396,3 +396,35 @@ def test_scheduler_degradation_matches_reference():
     assert_close(port, ref)
     assert port[0] == 1                  # the loosest lane sheds first
     assert any(o[0] != "ok" for o in port[1:13] if isinstance(o, tuple))
+
+
+def test_scheduler_degradation_sheds_loosest_lane():
+    """The port's shed path names its reason: while lane 0 burns its
+    budget, lane 1 is refused with ``RejectReason.DEGRADED``, counted
+    under "degraded", and admitted again once the burn stops (the
+    reference's ``tests/test_obs_analyze.py`` scenario)."""
+    clk = PS.FakeClock()
+    mon = _monitor("port")
+    fired = []
+    mon.on_alert(fired.append)
+    s = PS.MicroBatchScheduler(
+        lambda x: x.sum(axis=-1),
+        PS.SchedConfig(max_batch=4, n_priorities=2,
+                       lane_slo_us=(500.0, 5_000.0)),
+        clock=clk, slo_monitor=mon)
+    assert s._degrade_lane == 1          # largest SLO budget loses first
+    for _ in range(20):
+        clk.advance_us(20.0)
+        s.metrics.record_done(600.0, clk.now_us(), lane=0,
+                              deadline_us=clk.now_us() - 1.0)
+    with pytest.raises(PS.RequestRejected) as ei:
+        s.submit(np.ones((1, 3), np.float32), priority=1)
+    assert ei.value.reason == PS.RejectReason.DEGRADED
+    assert fired and fired[0].kind == "fire" and fired[0].lane == 0
+    assert s.metrics.snapshot()["rejected_by_reason"]["degraded"] == 1
+    s.submit(np.ones((1, 3), np.float32), priority=0)
+    clk.advance_us(3_000.0)
+    f = s.submit(np.ones((1, 3), np.float32), priority=1)
+    assert mon.alerting_lanes() == []
+    s.poll(force=True)
+    f.result(0)
