@@ -152,7 +152,25 @@ Phases, each printing its own lines:
                 bfloat16 rows of fanin_matmul and flash_attention at the
                 bench shape, with the same library calls on the bf16
                 operands. xnor's bound counts its bit products at the
-                rate the probe measured for b1 ``and.popc`` in this run.
+                rate the probe measured for b1 ``and.popc`` in this run;
+  12. latency — the benchmark runner, ``repro_torch.bench.run --fast
+                --only latency,kernels``, once from every launch count
+                at 0 into a temporary directory with a history ledger
+                there: the latency section (JSC-S trained 200 steps,
+                batch 256) must launch lut_layer, xnor_popcount and
+                lut_eval_streamed; on its own inputs ``net(x,
+                use_kernel=True)`` must equal ``net(x)``, the xnor path
+                ``xnor_matmul_ref`` and the streamed walk's labels
+                ``classify``'s; ``execute_packed_cuda`` and
+                ``execute_packed_streamed`` on its netlist at W = 8 must
+                equal ``execute_packed``; the check_regression twin must
+                pass the written records against themselves with some
+                metric checked, and a second history append must be
+                skipped. It prints each path's wall µs, device µs (CUDA
+                events behind a device spin, and whether the calls
+                stayed queued behind it), device busy µs a call
+                (``torch.profiler``) and the synchronizations one call
+                makes (torch's sync debug mode) beside the card.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -183,6 +201,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -1890,6 +1909,137 @@ def phase_bench(torch):
     return counts
 
 
+def phase_latency(torch, card):
+    """The benchmark runner's latency and kernels sections, once, from
+    every launch count at 0 (``repro_torch.bench.run --fast``): the
+    latency section's own launches, its kernel paths held bit for bit
+    against their plain counterparts on its inputs, both
+    ``execute_packed`` walks on the trained netlist at W = 8 against the
+    host fold, the regression gate over the written records against
+    themselves and the history ledger's idempotent append."""
+    import io
+    import tempfile
+
+    import numpy as np
+    from repro_torch.bench import check_regression, history, latency, run
+    from repro_torch.core.logic_infer import classify
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.xnor_popcount import xnor_matmul, xnor_matmul_ref
+    from repro_torch.synth import (execute_packed, execute_packed_cuda,
+                                   execute_packed_streamed, random_words)
+    t0 = time.perf_counter()
+    section_counts = {}
+    timed = latency.run
+
+    def counted(**kw):                # the latency section's own launches
+        out = timed(**kw)
+        section_counts.update(launch_counts())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger = os.path.join(tmp, "history.jsonl")
+        latency.run = counted
+        try:
+            reset_launch_counts()
+            res = run.main(["--fast", "--only", "latency,kernels",
+                            "--out-dir", tmp, "--history", ledger])
+        finally:
+            latency.run = timed
+        counts = launch_counts()
+        for name in ("lut_layer", "xnor_popcount", "lut_eval_streamed"):
+            require(section_counts.get(name, 0) > 0,
+                    f"latency: {name} was not launched by the latency "
+                    f"section (counts {section_counts})")
+        rec = res["latency"]
+        require(rec["backend"] == "cuda", f"latency: record on {rec}")
+        require(all(rec["identical"].values()),
+                f"latency: a kernel path differs: {rec['identical']}")
+
+        lr = latency.last_run
+        net, x = lr.net, lr.x
+        require(torch.equal(net(x, use_kernel=True), net(x)),
+                "latency: net(x, use_kernel=True) differs from net(x)")
+        sx = torch.sign(x)
+        require(torch.equal(xnor_matmul(sx, lr.wq),
+                            xnor_matmul_ref(sx, lr.wq)),
+                "latency: xnor_matmul differs from xnor_matmul_ref")
+        labels = classify(net, x, latency.N_CLASSES).cpu().numpy()
+        require(np.array_equal(lr.bitnet.classify(x, latency.N_CLASSES),
+                               labels),
+                "latency: the streamed walk's labels differ from classify's")
+        mapped = lr.bitnet.mapped
+        words = random_words(mapped.n_pis, 8, seed=0)
+        want = execute_packed(mapped, words)
+        for name, fn in (("execute_packed_cuda", execute_packed_cuda),
+                         ("execute_packed_streamed", execute_packed_streamed)):
+            require(np.array_equal(fn(mapped, words), want),
+                    f"latency: {name} differs from execute_packed at W = 8 "
+                    f"({mapped.n_luts} LUTs)")
+
+        files = [run.bench_path(tmp, s) for s in ("latency", "kernels")]
+        for path in files:
+            with open(path) as f:
+                doc = json.load(f)
+            require(set(doc) == {"section", "meta", "rows", "results"}
+                    and doc["rows"], f"latency: {path} layout {set(doc)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = check_regression.main(
+                ["--files", ",".join(os.path.basename(p) for p in files),
+                 "--fresh-dir", tmp, "--baseline-dir", tmp])
+        n_checked = sum(int(n) for n in re.findall(r"(\d+) metrics checked",
+                                                   buf.getvalue()))
+        require(rc == 0 and n_checked > 0,
+                f"latency: check_regression gave {rc}, {n_checked} metrics "
+                f"checked:\n{buf.getvalue()}")
+        n_entries = len(history.load_history(ledger))
+        require(n_entries == 2, f"latency: {n_entries} ledger entries")
+        require(all(history.append_file(p, path=ledger) is None
+                    for p in files),
+                "latency: a second history append was not skipped")
+
+    # each path's device busy time a call (the profiler) and the
+    # synchronizations one call makes (torch's sync debug mode warns on
+    # each): a path that synchronizes cannot queue behind the spin
+    busy, syncs = {}, {}
+    fns = {"logic": lambda: net(x), "logic_pallas": lambda: net(
+               x, use_kernel=True),
+           "dense_float": lambda: latency.dense_forward(x, lr.ws),
+           "xnor": lambda: xnor_matmul(torch.sign(x), lr.wq),
+           "bitplane_streamed": lambda: lr.bitnet.classify(
+               x, latency.N_CLASSES)}
+    with tf32(False):
+        for name, fn in fns.items():
+            us, n = device_us(fn, None, 10)
+            busy[name] = us * n / 10 if n else None
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs[name] = sum("synchroniz" in str(w.message) for w in seen)
+    print(f"[latency] {len(files)} records, {n_checked} metrics checked, "
+          f"ledger {n_entries} entries (a rerun skipped); launches in the "
+          f"latency section {section_counts}, in both {counts}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    print("[latency] batch {} (JSC-S, {} steps, test acc {:.4f}), streamed "
+          "tile {}: ".format(rec["batch"], rec["train"]["steps"],
+                             rec["train"]["test_acc"],
+                             rec["bitplane_streamed_tile"])
+          + "; ".join(
+              f"{p} wall {rec[p + '_us']:.2f} us, device "
+              f"{rec[p + '_device_us']:.2f} us (queued "
+              f"{rec['device_queued'][p]}), busy "
+              + (f"{busy[p]:.2f} us" if busy[p] is not None else "not seen")
+              + f", {syncs[p]} syncs a call"
+              for p in latency.PATHS)
+          + f"; logic_vs_dense_x {rec['logic_vs_dense_x']} on {card}")
+    return counts
+
+
 def kernel_time_fns(torch, inp, errs):
     """label -> (function, kernel symbol) of the kernel times: the
     aig_sim walk on the bench AIG, on a strict chain and on a chain of
@@ -2284,6 +2434,7 @@ def main() -> int:
     inp = phase_kernels2(torch, errs)
     counts = phase_bench(torch)
     rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)
+    phase_latency(torch, card)
     require(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -26,9 +26,9 @@ is checked here on the host first:
     ``info``. A plane too large for shared memory is no error: the walk
     then keeps it in device memory.
 
-Results are cached by a content hash of the plan so the serving hot
-path (which validates on every ``--check`` preflight) pays the cost
-once per distinct netlist version.
+Results are cached by a content hash of the plan and of its tile
+schedule, so the serving hot path (which validates on every ``--check``
+preflight) pays the cost once per distinct netlist version.
 """
 from __future__ import annotations
 
@@ -57,16 +57,34 @@ _FULL = np.uint32(0xFFFFFFFF)
 _CACHE: Dict[str, CheckReport] = {}
 
 
-def plan_fingerprint(dplan: DevicePlan) -> str:
-    """Content hash over every tensor and scalar the kernel consumes."""
-    h = hashlib.sha1()
-    for arr in (dplan.leaf_idx, dplan.tt_bits, dplan.out_wires,
-                dplan.out_idx, dplan.out_neg):
+def _hash_arrays(h, arrays) -> None:
+    for arr in arrays:
         a = np.ascontiguousarray(arr)
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
+
+
+def plan_fingerprint(dplan: DevicePlan) -> str:
+    """Content hash over every tensor and scalar the kernel consumes."""
+    h = hashlib.sha1()
+    _hash_arrays(h, (dplan.leaf_idx, dplan.tt_bits, dplan.out_wires,
+                     dplan.out_idx, dplan.out_neg))
     h.update(f"{dplan.n_pis},{dplan.n_wires},{dplan.k}".encode())
+    return h.hexdigest()
+
+
+def tile_fingerprint(tplan) -> str:
+    """Content hash over every array and scalar of a ``TilePlan``: the
+    plan check's cache keys on it, so a tile schedule changed after a
+    clean validation is validated again (the reference keys on
+    ``(tile_rows, gather_cap)`` alone and returns the stale report)."""
+    h = hashlib.sha1()
+    _hash_arrays(h, (tplan.tt_tiles, tplan.leaf_tiles, tplan.leaf_loc,
+                     tplan.gather_rows, tplan.out_base, tplan.level_of_tile,
+                     tplan.out_idx, tplan.out_neg, tplan.row_of_wire))
+    h.update(f"{tplan.n_pis},{tplan.n_rows},{tplan.tile_rows},"
+             f"{tplan.gather_cap},{tplan.k}".encode())
     return h.hexdigest()
 
 
@@ -127,14 +145,15 @@ def validate_device_plan(dplan: DevicePlan,
                          block_w: int = DEFAULT_BLOCK_W,
                          use_cache: bool = True,
                          name: str = "device-plan") -> CheckReport:
-    """Static checks on a compiled ``DevicePlan``; cached by plan hash.
-    The shared-memory footprint is reckoned at the serving batch's
-    ``SERVE_WORDS`` packed words, ``block_w`` words a block at most,
-    against ``smem_budget_bytes`` (``None``: not reckoned)."""
+    """Static checks on a compiled ``DevicePlan``; cached by the hash of
+    the plan and of its attached tile schedule. The shared-memory
+    footprint is reckoned at the serving batch's ``SERVE_WORDS`` packed
+    words, ``block_w`` words a block at most, against
+    ``smem_budget_bytes`` (``None``: not reckoned)."""
     tp = getattr(dplan, "tiles", None)
     key = None
     if use_cache:
-        tile_key = (tp.tile_rows, tp.gather_cap) if tp is not None else None
+        tile_key = tile_fingerprint(tp) if tp is not None else None
         key = (plan_fingerprint(dplan), smem_budget_bytes, block_w,
                tile_key)
         hit = _CACHE.get(key)

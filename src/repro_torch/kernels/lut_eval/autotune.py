@@ -20,7 +20,6 @@ runs when explicitly invoked, because it times every candidate.
 """
 from __future__ import annotations
 
-import functools
 import json
 import os
 import tempfile
@@ -28,6 +27,8 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.timing import device_us
 
 from ..spec import DEFAULT_SPEC, KernelSpec
 
@@ -150,51 +151,6 @@ def tuned_spec(dplan, device, spec: Optional[KernelSpec] = None
     return DEFAULT_SPEC.with_tile(tile_rows=tuned[0], block_w=tuned[1])
 
 
-@functools.lru_cache(maxsize=8)
-def _cycles_per_ms(index: int) -> float:
-    """Clock cycles ``torch.cuda._sleep`` spins a millisecond on a card."""
-    torch.cuda.synchronize(index)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cycles = 1 << 22
-    start.record()
-    torch.cuda._sleep(cycles)
-    end.record()
-    end.synchronize()
-    return cycles / max(start.elapsed_time(end), 1e-3)
-
-
-def _time_us(fn, device, iters: int = 50) -> float:
-    """Time of one ``fn()`` in µs after a warm-up. On the card, by CUDA
-    events around ``iters`` calls queued behind a spin of twice their
-    host issue time, so the events see the device work back to back
-    rather than the host's issue rate; on the CPU, by the host clock."""
-    device = torch.device(device)
-    fn()
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    issue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * issue_ms
-                          * _cycles_per_ms(device.index or 0)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) * 1e3 / iters
-
-
 def autotune_streamed(bitnet, pi_words,
                       candidates: Sequence[Tuple[int, int]]
                       = DEFAULT_CANDIDATES,
@@ -208,9 +164,10 @@ def autotune_streamed(bitnet, pi_words,
     runs); ``pi_words``: (n_pi_wires, W) uint32 packed bitplanes (or
     their int32 tensor) shaped like the serving batch (the tuned shape
     is only as good as the batch it was measured on). Each candidate's
-    ``_CudaStreamedExecutor.eval_words`` is timed by ``_time_us``; with
-    ``timings`` given, each candidate's (tile_rows, block_w, us) is
-    appended to it.
+    ``_CudaStreamedExecutor.eval_words`` is timed by
+    ``repro_torch.timing.device_us`` (on the card, CUDA events behind a
+    device spin); with ``timings`` given, each candidate's (tile_rows,
+    block_w, us) is appended to it.
     """
     import numpy as np
 
@@ -229,7 +186,7 @@ def autotune_streamed(bitnet, pi_words,
         ex = _CudaStreamedExecutor(
             bitnet, spec=DEFAULT_SPEC.with_tile(tile_rows=tile_rows,
                                                 block_w=block_w))
-        us = _time_us(lambda: ex.eval_words(words), dev, iters=iters)
+        us, _ = device_us(lambda: ex.eval_words(words), dev, iters=iters)
         if timings is not None:
             timings.append((tile_rows, block_w, us))
         if best is None or us < best[2]:

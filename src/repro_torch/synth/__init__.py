@@ -6,7 +6,9 @@ mapping and mapped-netlist execution.
       -> balance + DAG-aware rewriting        (synth.rewrite)
       -> depth-optimal 6-LUT mapping + area   (synth.lutmap)
       -> bit-parallel execution on the host   (synth.executor,
-         or on the card through the lut_eval   synth.simulate)
+         or on the card through the lut_eval   synth.simulate;
+         walks                                 execute_packed_cuda /
+                                               execute_packed_streamed)
          kernels, and structural Verilog      (synth.executor.emit_verilog)
 
 The host pipeline is numpy (a copy of ``repro.synth``'s);
@@ -20,7 +22,8 @@ from .cuts import Cut, enumerate_cuts
 from . import executors
 from .executor import (BitplaneNetwork, DevicePlan, TilePlan,
                        compile_device_plan, compile_tile_plan,
-                       emit_verilog, execute_packed)
+                       emit_verilog, execute_packed, execute_packed_cuda,
+                       execute_packed_streamed)
 from .from_sop import cover_to_aig, layer_to_aig, network_to_aig, table_to_aig
 from .lutmap import MappedLUT, MappedNetwork, map_aig
 from .rewrite import balance, optimize, rewrite

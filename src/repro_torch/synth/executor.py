@@ -18,6 +18,10 @@ the name up in the ``repro_torch.synth.executors`` registry. Built-ins
     ``compile_tile_plan`` renumbers the wire plane level-major and the
     streamed ``lut_eval_streamed`` kernel walks its tiles.
 
+``execute_packed_cuda`` / ``execute_packed_streamed`` [reference
+``execute_packed_pallas`` / ``execute_packed_streamed``] run the host
+fold's words-in, words-out contract through each walk.
+
 All engines are bit-identical on every reachable input. ``emit_verilog``
 writes the mapped netlist as structural Verilog. The device
 engines quantize, pack, evaluate, complement, decode and take the
@@ -318,6 +322,84 @@ def compile_device_plan(mapped: MappedNetwork,
 
 
 # ---------------------------------------------------------------------------
+# execute_packed through each walk (reference: execute_packed_pallas /
+# execute_packed_streamed)
+# ---------------------------------------------------------------------------
+
+def _int32_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a contiguous int32 tensor on ``device`` (uint32
+    words as their int32 view)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a.astype(np.int32), device=device)
+
+
+def _outputs(plane: torch.Tensor, out_idx: np.ndarray,
+             out_neg: np.ndarray) -> np.ndarray:
+    """Gather the output rows of a walk's int32 plane and complement the
+    negated ones -> (n_outputs, W) uint32 words on the host."""
+    out = plane[torch.as_tensor(out_idx, dtype=torch.long,
+                                device=plane.device)]
+    out = out.cpu().numpy().view(np.uint32)
+    out[out_neg] = ~out[out_neg]
+    return out
+
+
+def execute_packed_cuda(mapped: MappedNetwork, pi_words: np.ndarray,
+                        dplan: Optional[DevicePlan] = None,
+                        device=None) -> np.ndarray:
+    """``execute_packed`` through the monolithic ``lut_eval`` walk:
+    pi_words (n_pis, W) uint32 -> output words (n_outputs, W) uint32.
+
+    ``dplan`` defaults to ``compile_device_plan(mapped)``; ``device``
+    (``resolve_device``: the card unless ``"cpu"``, where the walk's
+    plain version runs) is where the walk runs."""
+    from repro_torch.kernels.lut_eval import lut_eval
+
+    dev = resolve_device(device)
+    pi_words = np.asarray(pi_words, np.uint32)
+    assert pi_words.shape[0] == mapped.n_pis
+    if dplan is None:
+        dplan = compile_device_plan(mapped)
+    plane = lut_eval(_int32_tensor(pi_words, dev),
+                     _int32_tensor(dplan.leaf_idx, dev),
+                     _int32_tensor(dplan.tt_bits, dev),
+                     _int32_tensor(dplan.out_wires, dev),
+                     n_wires=dplan.n_wires)
+    return _outputs(plane, dplan.out_idx, dplan.out_neg)
+
+
+def execute_packed_streamed(mapped: MappedNetwork, pi_words: np.ndarray,
+                            tplan: Optional[TilePlan] = None,
+                            tile_rows: int = DEFAULT_TILE_ROWS,
+                            device=None) -> np.ndarray:
+    """``execute_packed`` through the streamed ``lut_eval_streamed``
+    walk: pi_words (n_pis, W) uint32 -> output words (n_outputs, W)
+    uint32.
+
+    ``tplan`` defaults to the tile plan of ``tile_rows`` slots a tile;
+    the walk takes its geometry from the plan (no autotune lookup).
+    ``device`` as for ``execute_packed_cuda``."""
+    from repro_torch.kernels.lut_eval import level_starts, lut_eval_streamed
+
+    dev = resolve_device(device)
+    pi_words = np.asarray(pi_words, np.uint32)
+    assert pi_words.shape[0] == mapped.n_pis
+    if tplan is None:
+        tplan = compile_tile_plan(_compile_plan(mapped), mapped.n_pis,
+                                  mapped.k, tile_rows)
+    plane = lut_eval_streamed(_int32_tensor(pi_words, dev),
+                              _int32_tensor(tplan.tt_tiles, dev),
+                              _int32_tensor(tplan.leaf_tiles, dev),
+                              _int32_tensor(tplan.out_base, dev),
+                              _int32_tensor(level_starts(tplan.level_of_tile),
+                                            dev),
+                              n_rows=tplan.n_rows)
+    return _outputs(plane, tplan.out_idx, tplan.out_neg)
+
+
+# ---------------------------------------------------------------------------
 # Executors (the engine implementations behind repro_torch.synth.executors)
 # ---------------------------------------------------------------------------
 
@@ -404,10 +486,7 @@ class _TorchExecutor:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A plan array as a contiguous int32 tensor on the device
         (uint32 INIT masks as their int32 view)."""
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.as_tensor(a.astype(np.int32), device=self.device)
+        return _int32_tensor(a, self.device)
 
     # ---- device building blocks -----------------------------------------
 

@@ -11,8 +11,9 @@ and counterexample, and the port's must also meet the reference test's
 own assertions. Where the packages differ by design it is said: the
 plan check's footprint (the CUDA walks' shared memory here, TPU VMEM
 there) and the concurrency lint's scan of the port's own serve/obs
-files and tests. The reference's three ``check_regression`` tests wait
-for the port's benchmark tooling.
+files and tests, and the plan check's cache, which here keys on the
+tile schedule's contents. The reference's three ``check_regression``
+tests are twinned in test_torch_bench_run.py.
 """
 import copy
 import dataclasses
@@ -441,6 +442,36 @@ def test_plan_clean_and_cached():
     rdp.tt_bits[0, 0, 0] ^= 0xFFFFFFFF
     assert PC.plan_fingerprint(dp) != PC.plan_fingerprint(dp2) \
         == RC.plan_fingerprint(rdp)
+
+
+def _corrupt_tiles(P):
+    """A plan with tiles, validated clean (cache on), and a deep copy
+    whose last tile reads its own output band."""
+    m, _ = _plan(P)
+    dp = P.synth.compile_device_plan(m, tile_rows=4)
+    clean = P.check.validate_device_plan(dp)
+    bad = copy.deepcopy(dp)
+    last = bad.tiles.n_tiles - 1
+    bad.tiles.leaf_tiles[last, 0, 0] = bad.tiles.out_base[last]
+    return clean, bad
+
+
+def test_plan_cache_sees_a_corrupted_tile_schedule():
+    """The cache keys on the tile schedule's contents: a corrupted copy
+    of a plan validated before is refused with the cache on, as it is
+    with the cache off. The reference keys on (tile_rows, gather_cap)
+    and hands back the clean report (a logged deviation)."""
+    clean, bad = _corrupt_tiles(PORT)
+    assert clean.ok, clean.format()
+    assert PC.plan_fingerprint(bad) == PC.plan_fingerprint(
+        PSY.compile_device_plan(_plan(PORT)[0], tile_rows=4))
+    cached = PC.validate_device_plan(bad)
+    assert not cached.ok and "tile-gather" in _codes(cached)
+    assert summary(cached) == summary(_fresh(PORT, bad))
+    assert {"tile-gather", "tile-order"} <= _codes(cached)
+    ref_clean, ref_bad = _corrupt_tiles(REF)
+    assert RC.validate_device_plan(ref_bad) is ref_clean
+    assert summary(_fresh(REF, ref_bad)) == summary(cached)
 
 
 def _plan_corruptions(P):

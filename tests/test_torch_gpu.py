@@ -80,6 +80,25 @@ def test_lut_eval_kernels_match_plain(cuda_device, mapped, n_words,
                                                   n_rows=tp.n_rows))
 
 
+@pytest.mark.parametrize("n_words,tile_rows", [(1, 8), (7, 32), (130, 8)])
+def test_execute_packed_walks_on_card_match_host_fold(cuda_device, mapped,
+                                                      n_words, tile_rows):
+    """``execute_packed_cuda`` / ``execute_packed_streamed`` launch their
+    walk on the card (the default device) and give ``execute_packed``'s
+    words."""
+    words = synth.random_words(mapped.n_pis, n_words, seed=n_words)
+    want = synth.execute_packed(mapped, words)
+    launches = lut_eval.launches
+    got = synth.execute_packed_cuda(mapped, words)
+    assert lut_eval.launches == launches + 1
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+    launches = lut_eval_streamed.launches
+    got = synth.execute_packed_streamed(mapped, words, tile_rows=tile_rows)
+    assert lut_eval_streamed.launches == launches + 1
+    np.testing.assert_array_equal(got, want)
+
+
 def random_netlist(seed, k, n_pis=20, n_levels=4, width=70):
     """A random mapped k-LUT netlist of exactly ``n_levels`` levels of
     ``width`` LUTs, 1 to k leaves each (one from the level below), with

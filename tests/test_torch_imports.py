@@ -52,11 +52,15 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.core.netlist",
                                     "repro_torch.bench.table1_jsc",
                                     "repro_torch.examples.quickstart",
-                                    "repro_torch.examples.serve_logic"])
+                                    "repro_torch.examples.serve_logic",
+                                    "repro_torch.bench.latency",
+                                    "repro_torch.bench.run",
+                                    "repro_torch.bench.check_regression",
+                                    "repro_torch.bench.history"])
 def test_training_modules_import_without_jax(module):
-    """Each module of the training, serving-at-scale and verification
-    slices, alone in a fresh interpreter, leaves JAX and the reference
-    package out of ``sys.modules``."""
+    """Each module of the training, serving-at-scale, verification and
+    benchmark slices, alone in a fresh interpreter, leaves JAX and the
+    reference package out of ``sys.modules``."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -108,11 +112,29 @@ def test_entry_points_default_to_cuda():
     from repro_torch.bench.table1_jsc import run as table1
     from repro_torch.check.__main__ import main as check_main
     from repro_torch.examples import quickstart, serve_logic
+    from repro_torch.bench import latency, run
+    from repro_torch.synth import (execute_packed_cuda,
+                                   execute_packed_streamed)
+    from repro_torch.synth.simulate import random_words
+    mapped = _tiny_mapped()
+    words = random_words(mapped.n_pis, 2, seed=0)
     for entry in (lambda: check_main(["--fast"]),
                   lambda: check_main(["--static"]),
                   lambda: table1(steps=1, archs=("jsc-s",)),
                   lambda: quickstart.main([]),
-                  lambda: serve_logic.main([])):
+                  lambda: serve_logic.main([]),
+                  lambda: latency.run(steps=1, batch=16),
+                  lambda: latency.main(["--steps", "1"]),
+                  lambda: run.main(["--only", "latency"]),
+                  lambda: execute_packed_cuda(mapped, words),
+                  lambda: execute_packed_streamed(mapped, words)):
         with pytest.raises(NoCudaDeviceError):
             entry()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _tiny_mapped():
+    from repro_torch import synth
+    aig = synth.AIG(3)
+    aig.outputs = [aig.and2(synth.lit(1), synth.lit(2) ^ 1)]
+    return synth.synthesize(aig)
