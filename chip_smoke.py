@@ -170,7 +170,28 @@ Phases, each printing its own lines:
                 events behind a device spin, and whether the calls
                 stayed queued behind it), device busy µs a call
                 (``torch.profiler``) and the synchronizations one call
-                makes (torch's sync debug mode) beside the card.
+                makes (torch's sync debug mode) beside the card;
+  13. lm      — the LM serving path: glm4-9b at full width (seed 0,
+                float32 init cast to bf16 by ``LMEngine``) serving 8
+                prompts of 32 tokens from ``default_rng(0)`` through 4
+                slots, ``max_seq`` 256, 16 new tokens each, from every
+                launch count at 0: every request served, flash_attention
+                launched 8 x 40 times (one a layer per prefill), the
+                tokens those of a single-request greedy loop on the card
+                or, where they part, at a top-2 gap under LM_ATOL +
+                LM_RTOL |top| (the reference's decode-vs-forward
+                tolerance); prefill + decode_step against forward at S
+                48 within that tolerance; the kernel within 2e-2 of its
+                plain version and of the full_attention /
+                chunked_attention twins on the q, k, v of layer 0 of a
+                served prefill and of a 2,100-token one, then timed
+                beside SDPA (row 7c of the kernels line); the decode
+                step's time, device busy and idle share, launches and
+                synchronizations against its byte bound; then
+                hymba-1.5b at full width with a 1,100-token prompt past
+                its 1,024 window and three of 32 (max_seq 1,200, 8 new
+                tokens): a window-long ring cache, 4 x 32 flash
+                launches, decode against forward on the long prompt.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -2397,6 +2418,444 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_HYBRID = "glm4-9b", "hymba-1.5b"
+LM_REQUESTS, LM_PROMPT, LM_NEW = 8, 32, 16   # the launcher's --mode lm
+LM_SLOTS, LM_MAX_SEQ = 4, 256
+LM_DECODE_S = 48                             # tests/test_models.py:45
+LM_LONG_PREFILL = 2100                       # past ATTN_CHUNK_THRESHOLD
+HYBRID_LONG, HYBRID_SHORT, HYBRID_MAX_SEQ, HYBRID_NEW = 1100, 32, 1200, 8
+LM_KERNEL_TOL = 2e-2        # flash against its plain versions in bf16
+# decode against forward: |a - b| <= LM_ATOL + LM_RTOL |b|, the
+# reference's own decode-vs-forward tolerance (tests/test_models.py:70);
+# products of other shapes round in other orders, and forty layers carry
+# it to the logits
+LM_ATOL, LM_RTOL = 0.15, 0.1
+# the engine against a single-request loop: where the engine's token is
+# not the loop's argmax, the loop's logit for it lies within four bf16
+# steps of the top (a step at |x| is at most 2^-7 |x|); a batch of slots
+# and a batch of one round their products in other orders
+LM_PART_TOL = 4 * 2.0 ** -7
+
+
+def lm_tol(ref):
+    return LM_ATOL + LM_RTOL * ref.abs()
+
+
+def logit_gap(logits):
+    """Top-1 minus top-2 of one row of logits (float)."""
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def decode_vs_forward(torch, lm, cfg, params, tokens, s, max_seq, label):
+    """prefill(x[:s]) + decode_step(x[s]) against forward(x[:s+1])'s last
+    logits: within lm_tol, and argmax equal in every row whose top-2 gap
+    exceeds it. Returns the largest |difference|."""
+    b = tokens.shape[0]
+    with torch.inference_mode():
+        hidden, _ = lm.forward(cfg, params, tokens)
+        want = lm.logits_head(cfg, params, hidden[:, -1]).float()
+        del hidden
+        _, cache = lm.prefill(cfg, params, tokens[:, :s], max_seq=max_seq)
+        got, _ = lm.decode_step(
+            cfg, params, cache, tokens[:, s:s + 1],
+            torch.full((b,), s, dtype=torch.int32, device=tokens.device))
+        got = got.float()
+    err = (got - want).abs()
+    require(bool((err <= lm_tol(want)).all()),
+            f"lm {label}: decode against forward exceeds {LM_ATOL} + "
+            f"{LM_RTOL}|x| (max abs err {float(err.max())})")
+    for i in range(b):
+        if logit_gap(want[i]) > float(lm_tol(want[i].max())):
+            require(int(got[i].argmax()) == int(want[i].argmax()),
+                    f"lm {label}: row {i} argmax differs at a top-2 gap of "
+                    f"{logit_gap(want[i])}")
+    return float(err.max())
+
+
+def serve_timed(torch, lm, eng, reqs):
+    """``eng.run(reqs)`` with every flash launch counted from 0 and each
+    prefill and decode step timed (host clock ending in a synchronize:
+    the engine synchronizes on each token anyway). Returns (done,
+    seconds, flash launches, prefill ms, decode ms)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    timed = {"prefill": [], "decode_step": []}
+    real = {name: getattr(lm, name) for name in timed}
+
+    def timer(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kw)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    for name in timed:
+        setattr(lm, name, timer(name))
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()["flash_attention"]
+    finally:
+        for name, fn in real.items():
+            setattr(lm, name, fn)
+    return done, seconds, launches, timed["prefill"], timed["decode_step"]
+
+
+def record_attention(layers, keep=lambda q: True):
+    """Keep a copy of the first (q, k, v, kwargs) with ``keep(q)`` true
+    that the prefill attention entry point is given while the context
+    is open."""
+    seen = []
+    real = layers.attention
+
+    def recording(q, k, v, **kw):
+        if not seen and keep(q):
+            seen.append((q.clone(), k.clone(), v.clone(), kw))
+        return real(q, k, v, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        layers.attention = recording
+        try:
+            yield seen
+        finally:
+            layers.attention = real
+    return ctx()
+
+
+def decode_profile(torch, lm, cfg, params, cache, toks, pos, n=5):
+    """Device busy and idle share of one decode step (``torch.profiler``
+    over ``n`` steps, each ending in a synchronize), the kernels a step
+    launches and the synchronizations one step makes (torch's sync debug
+    mode warns on each)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        lm.decode_step(cfg, params, cache, toks, pos)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                lm.decode_step(cfg, params, cache, toks, pos)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / n
+    busy, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    busy /= n
+    with torch.inference_mode(), warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            lm.decode_step(cfg, params, cache, toks, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    return wall_us, busy, 1.0 - busy / wall_us, kernels / n, syncs
+
+
+def decode_bytes(cfg, params, cache, batch):
+    """Least bytes a decode step moves: every weight read once (the
+    embedding: its ``batch`` rows), the whole cache read once (KV ring,
+    its positions, the SSM state and conv tail), and the SSM state and
+    conv tail written once (a step replaces them)."""
+    n = sum(t.numel() * t.element_size()
+            for name, t in params.named_parameters() if name != "embed")
+    n += batch * cfg.d_model * params.embed.element_size()
+    n += sum(t.numel() * t.element_size() for t in cache.values())
+    return n + sum(t.numel() * t.element_size() for key, t in cache.items()
+                   if key in ("ssm", "conv"))
+
+
+def check_attention(errs, name, q, k, v, kw, what):
+    """The flash kernel against ``attention_ref`` and the CPU path's twin
+    (``full_attention``, or ``chunked_attention`` above
+    ATTN_CHUNK_THRESHOLD) on one recorded prefill's q, k, v: within
+    LM_KERNEL_TOL, and within LM_KERNEL_TOL x max |plain| (past a
+    thousand keys the outputs shrink to about sqrt(e / n)). Returns the
+    kernel's output."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers as L
+    got = flash_attention(q, k, v, **kw)
+    long = max(q.shape[1], k.shape[1]) > L.ATTN_CHUNK_THRESHOLD
+    twin = (L.chunked_attention(q, k, v, chunk=L.ATTN_CHUNK, **kw) if long
+            else L.full_attention(q, k, v, **kw))
+    for want, against in ((attention_ref(q, k, v, **kw), "attention_ref"),
+                          (twin, "chunked_attention" if long
+                           else "full_attention")):
+        check_close(errs, name, got, want, LM_KERNEL_TOL,
+                    f"{what} against {against}")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        require(err <= LM_KERNEL_TOL * scale,
+                f"{name} {what} against {against}: error {err} exceeds "
+                f"{LM_KERNEL_TOL} x max |plain| {scale}")
+    return got
+
+
+def phase_lm(torch, card, errs):
+    """The LM serving path on the card: glm4-9b at full width through
+    ``LMEngine`` (the flash kernel one launch a layer per prefill, from
+    every launch count at 0), against a single-request greedy loop;
+    decode against forward; the kernel against its plain versions at
+    the path's shapes (one layer of a served prefill, and of a prefill
+    past ATTN_CHUNK_THRESHOLD); then hymba-1.5b at full width with a
+    prompt past its window. Returns row 7c of the kernels line."""
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import LMEngine, LMRequest
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. glm4-9b through the engine, from every launch count at 0
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    f32_bytes = sum(t.numel() * 4 for t in params.parameters())
+    t_init = time.perf_counter() - t0
+    eng = LMEngine(cfg, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                   device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [LMRequest(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT,
+                                          dtype=np.int32),
+                      max_new_tokens=LM_NEW) for _ in range(LM_REQUESTS)]
+    with record_attention(L) as seen:
+        done, seconds, launches, prefill_ms, decode_ms = serve_timed(
+            torch, lm, eng, reqs)
+    require(len(done) == LM_REQUESTS
+            and all(len(r.out_tokens) == LM_NEW for r in reqs),
+            f"lm: {len(done)} requests done, tokens "
+            f"{[len(r.out_tokens) for r in reqs]}")
+    require(launches == LM_REQUESTS * cfg.n_layers,
+            f"lm: flash_attention launched {launches} times in the engine's "
+            f"run, expected {LM_REQUESTS} x {cfg.n_layers}")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+
+    # the same requests through a single-request greedy loop on the card:
+    # where the engine's token is not the loop's argmax, the loop's logit
+    # for it lies within LM_PART_TOL |top| of the top; the loop then
+    # takes the engine's token and goes on comparing to the last token
+    parted = []
+    with torch.inference_mode():
+        for j, req in enumerate(reqs):
+            logits, cache = lm.prefill(
+                cfg, params, torch.as_tensor(req.prompt[None], device=dev),
+                max_seq=LM_MAX_SEQ)
+            pos = len(req.prompt)
+            for i, tok in enumerate(req.out_tokens):
+                row_ = logits[0].float()
+                if int(row_.argmax()) != tok:
+                    top = float(row_.max())
+                    gap = top - float(row_[tok])
+                    parted.append((j, i, gap))
+                    require(gap <= LM_PART_TOL * abs(top),
+                            f"lm: request {j} parts from the single loop at "
+                            f"token {i}: the engine's token is {gap} under "
+                            f"the top {top} (limit {LM_PART_TOL} |top|)")
+                if i + 1 == len(req.out_tokens):
+                    break
+                logits, cache = lm.decode_step(
+                    cfg, params, cache,
+                    torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                    torch.tensor([pos], dtype=torch.int32, device=dev))
+                pos += 1
+    del cache
+
+    # 2. decode against forward at full width
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, LM_DECODE_S + 1)).astype(np.int32), device=dev)
+    dvf_err = decode_vs_forward(torch, lm, cfg, params, toks, LM_DECODE_S,
+                                LM_DECODE_S + 8, LM_ARCH)
+
+    # 3. the kernel against its plain versions at the path's shapes
+    q, k, v, kw = seen[0]
+    with record_attention(L) as long_seen, torch.inference_mode():
+        lm.prefill(cfg, params, torch.as_tensor(np.random.default_rng(3)
+                   .integers(0, cfg.vocab_size, (1, LM_LONG_PREFILL))
+                   .astype(np.int32), device=dev))
+    ql, kl, vl, kwl = long_seen[0]
+    require(q.shape == (1, LM_PROMPT, cfg.n_heads, cfg.head_dim)
+            and q.dtype == torch.bfloat16 and ql.shape[1] == LM_LONG_PREFILL
+            and LM_LONG_PREFILL > L.ATTN_CHUNK_THRESHOLD,
+            f"lm: recorded attention inputs {tuple(q.shape)} {q.dtype}, "
+            f"{tuple(ql.shape)}")
+    got = check_attention(errs, "flash_attention glm4-9b prefill", q, k, v,
+                          kw, "served prefill layer 0")
+    long_errs = {}
+    check_attention(long_errs, "flash_attention", ql, kl, vl, kwl,
+                    f"{LM_LONG_PREFILL}-token prefill layer 0")
+    del ql, kl, vl
+
+    # row 7c: the kernel at the served prefill's shape
+    b, sq, h, dh = q.shape
+    flops = 4 * dh * b * h * sum(i + 1 for i in range(sq))      # causal
+    n_bytes = nbytes(q, k, v, got)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    check_close({}, "flash_attention", sdpa().transpose(1, 2), got,
+                LM_KERNEL_TOL, "against the library call")
+    fn = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    src, replaces = KERNELS["flash_attention"]
+    row = {"name": "flash_attention glm4-9b prefill", "route": "cuda",
+           "source": src, "replaces": replaces, "launches": launches,
+           "max_abs_err": errs["flash_attention glm4-9b prefill"],
+           "ms": time_ms(fn), "plain_ms": time_ms(
+               lambda: attention_ref(q, k, v, **kw), iters=20, reps=3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa)}
+    dev_us, dev_n = device_us(fn, "flash_attention", 20)
+    sdpa_us, sdpa_n = device_us(sdpa, None, 20)
+
+    # 4. the decode step: time, idle share, launches, bound
+    toks4 = torch.as_tensor(eng.last_tok, device=dev)
+    pos4 = torch.as_tensor(eng.positions, device=dev)
+    wall_us, busy_us, idle, kernels, syncs = decode_profile(
+        torch, lm, cfg, params, eng.cache, toks4, pos4)
+    step_bytes = decode_bytes(cfg, params, eng.cache, LM_SLOTS)
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] {LM_ARCH} ({cfg.param_count() / 1e9:.2f} B parameters, "
+          f"{f32_bytes / 1e9:.1f} GB float32 at init in {t_init:.1f}s, "
+          f"bf16 after the engine's cast): {LM_REQUESTS} requests of "
+          f"{LM_PROMPT} tokens, {LM_SLOTS} slots, max_seq {LM_MAX_SEQ}: "
+          f"{n_tok} tokens in {seconds:.3f}s ({n_tok / seconds:.1f} tok/s); "
+          f"flash_attention launches {launches} ({cfg.n_layers} a request); "
+          f"prefill median {statistics.median(prefill_ms):.3f} ms a request "
+          f"({len(prefill_ms)}), decode median "
+          f"{statistics.median(decode_ms):.3f} ms a step ({len(decode_ms)}) "
+          f"on {card}")
+    print(f"[lm] single-request loop: "
+          + ("every token equal" if not parted else
+             "; ".join(f"request {j} parts at token {i}, the engine's "
+                       f"token {g:.5f} under the top (limit {LM_PART_TOL} "
+                       f"|top|)" for j, i, g in parted))
+          + f" over {n_tok} tokens"
+          + f"; decode against forward (S {LM_DECODE_S}) max abs err "
+          f"{dvf_err:.5f} (tolerance {LM_ATOL} + {LM_RTOL}|x|)")
+    print(f"[lm] decode step ({LM_SLOTS} slots): profiled {wall_us:.1f} us, "
+          f"device busy {busy_us:.1f} us, idle share {idle:.4f}, "
+          f"{kernels:.0f} kernel launches and {syncs} synchronizations a "
+          f"step; bound {step_bound_ms:.4f} "
+          f"ms ({step_bytes} bytes over 3.35 TB/s: the bf16 weights a step "
+          f"reads and the cache); max_memory_allocated {peak} bytes on "
+          f"{card}")
+    print(f"[lm] flash_attention at glm4-9b's prefill (B {b}, S {sq}, H {h}, "
+          f"KV {k.shape[2]}, dh {dh}, bf16): {row['ms']:.5f} ms, device "
+          + (f"{dev_us:.2f} us a launch" if dev_n else "not seen")
+          + f"; plain {row['plain_ms']:.5f} ms; SDPA {row['library_ms']:.5f} "
+          f"ms (device "
+          + (f"{sdpa_us * sdpa_n / 20:.2f} us a call" if sdpa_n else
+             "not seen")
+          + f"); bound {b_ms:.7f} ms by {b_by} "
+          f"({n_bytes} bytes, {flops} operations at 989 T/s); max abs err "
+          f"{row['max_abs_err']:.4g}; kernel within {LM_KERNEL_TOL} of "
+          f"full_attention at S {LM_PROMPT} and of chunked_attention at S "
+          f"{LM_LONG_PREFILL} (max abs err "
+          f"{long_errs['flash_attention']:.4g}) on {card}")
+    del eng, params, seen, q, k, v, got, qt, kt, vt, toks4, pos4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. hymba-1.5b: a prompt past its window, three short ones
+    hcfg = get_arch(LM_HYBRID)
+    hparams = lm.init_params(hcfg, torch.Generator(device=dev).manual_seed(0))
+    heng = LMEngine(hcfg, hparams, n_slots=LM_SLOTS,
+                    max_seq=HYBRID_MAX_SEQ, device=dev)
+    rng = np.random.default_rng(1)
+    long_prompt = rng.integers(0, hcfg.vocab_size, HYBRID_LONG + 1,
+                               dtype=np.int32)
+    hreqs = [LMRequest(prompt=long_prompt[:HYBRID_LONG],
+                       max_new_tokens=HYBRID_NEW)] + [
+        LMRequest(prompt=rng.integers(0, hcfg.vocab_size, HYBRID_SHORT,
+                                      dtype=np.int32),
+                  max_new_tokens=HYBRID_NEW) for _ in range(3)]
+    with record_attention(L, lambda q: q.shape[1] == HYBRID_LONG) as hseen:
+        hdone, hsec, hlaunch, hpre, hdec = serve_timed(torch, lm, heng,
+                                                       hreqs)
+    require(len(hdone) == 4 and all(len(r.out_tokens) == HYBRID_NEW
+                                    for r in hreqs),
+            f"lm {LM_HYBRID}: {len(hdone)} done")
+    require(hlaunch == 4 * hcfg.n_layers,
+            f"lm {LM_HYBRID}: flash_attention launched {hlaunch} times")
+    require(heng.cache["k"].shape[2] == hcfg.window,
+            f"lm {LM_HYBRID}: attention cache {tuple(heng.cache['k'].shape)}"
+            f" is not window-long ({hcfg.window})")
+    # the kernel against its plain versions at the long prompt's shape:
+    # 76 query rows past the sliding window
+    require(len(hseen) == 1, f"lm {LM_HYBRID}: no {HYBRID_LONG}-token "
+            "prefill attention was recorded")
+    hq, hk, hv, hkw = hseen[0]
+    require(hkw.get("window") == hcfg.window == 1024
+            and hq.shape == (1, HYBRID_LONG, hcfg.n_heads, hcfg.head_dim)
+            and hk.shape[2] == hcfg.n_kv_heads and hq.shape[1] > hcfg.window
+            and hq.dtype == torch.bfloat16,
+            f"lm {LM_HYBRID}: recorded attention inputs {tuple(hq.shape)} "
+            f"{tuple(hk.shape)} {hq.dtype} {hkw}")
+    hattn_errs = {}
+    check_attention(hattn_errs, "flash_attention", hq, hk, hv, hkw,
+                    f"{LM_HYBRID} {HYBRID_LONG}-token prefill layer 0")
+    del hq, hk, hv, hseen
+    hdvf = decode_vs_forward(
+        torch, lm, hcfg, hparams, torch.as_tensor(long_prompt[None],
+                                                  device=dev),
+        HYBRID_LONG, HYBRID_MAX_SEQ, LM_HYBRID)
+    hn = sum(len(r.out_tokens) for r in hreqs)
+    hwall, hbusy, hidle, hkern, hsync = decode_profile(
+        torch, lm, hcfg, hparams, heng.cache,
+        torch.as_tensor(heng.last_tok, device=dev),
+        torch.as_tensor(heng.positions, device=dev))
+    hstep_bytes = decode_bytes(hcfg, hparams, heng.cache, LM_SLOTS)
+    print(f"[lm] {LM_HYBRID}: prompts {HYBRID_LONG} (past the window of "
+          f"{hcfg.window}) and 3 x {HYBRID_SHORT}, max_seq {HYBRID_MAX_SEQ}: "
+          f"{hn} tokens in {hsec:.3f}s ({hn / hsec:.1f} tok/s); attention "
+          f"cache {tuple(heng.cache['k'].shape)}; flash_attention launches "
+          f"{hlaunch}; prefill median {statistics.median(hpre):.3f} ms "
+          f"(longest {max(hpre):.3f}), decode median "
+          f"{statistics.median(hdec):.3f} ms a step; profiled step "
+          f"{hwall:.1f} us, busy {hbusy:.1f} us, idle share {hidle:.4f}, "
+          f"{hkern:.0f} launches, {hsync} synchronizations; bound "
+          f"{hstep_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({hstep_bytes} "
+          f"bytes over 3.35 TB/s, as glm4's); flash_attention at the "
+          f"{HYBRID_LONG}-token prefill (window {hcfg.window}, H "
+          f"{hcfg.n_heads}, KV {hcfg.n_kv_heads}, dh {hcfg.head_dim}) within "
+          f"{LM_KERNEL_TOL} of attention_ref and full_attention (max abs err "
+          f"{hattn_errs['flash_attention']:.4g}); decode against "
+          f"forward at S {HYBRID_LONG} "
+          f"max abs err {hdvf:.5f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}")
+    del heng, hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f}s")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -2435,7 +2894,8 @@ def main() -> int:
     counts = phase_bench(torch)
     rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)
     phase_latency(torch, card)
-    require(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
+    rows.append(phase_lm(torch, card, errs))
+    require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Data pipelines: the synthetic JSC generator (numpy)."""
+"""Data pipelines: the synthetic JSC generator and the synthetic LM
+token stream (numpy)."""

@@ -1,4 +1,5 @@
-"""Serving launcher: compiled fixed-function logic classification.
+"""Serving launcher: compiled fixed-function logic classification
+(``--mode logic``) and continuous-batching LM decode (``--mode lm``).
 
   # JSC-S through the mapped 6-LUT netlist on the card, streamed kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --mode logic \\
@@ -30,7 +31,22 @@
       --loadgen both --slo-us 2000,20000 --trace /tmp/t.json \\
       --metrics-port 0
 
-As the reference launcher does, the model is first trained with QAT +
+  # glm4-9b at full width on the card, 8 requests of 32 tokens, 16 new
+  # tokens each; its smoke config on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+      --arch glm4-9b --smoke --device cpu --requests 4 --max-new 8
+
+``--mode lm`` serves ``--arch`` (``--smoke``: its smoke config) from
+weights seeded with ``--seed`` through ``LMEngine`` (4 slots,
+``max_seq`` 256): ``--requests`` prompts of 32 tokens from
+``default_rng(0)``, ``--max-new`` tokens each, greedy. It prints the
+tokens served, tok/s beside the device (the card's name and power
+limit), and the flash_attention launches (one a layer for each
+request's prefill, on the card).
+
+In ``--mode logic``, as the reference launcher does, the model is first
+trained with QAT +
 FCP (``train_jsc``, ``--train-steps``, default 400, from a
 ``torch.Generator`` seeded with ``--seed``; ``--train-steps 0`` gives
 the seeded init projected to its fanin budget), on the same device as
@@ -179,6 +195,52 @@ def serve_logic(jsc_name: str = "jsc-s", n_requests: int = 8,
             mserver.close()
 
 
+LM_SLOTS, LM_MAX_SEQ, LM_PROMPT = 4, 256, 32
+
+
+def serve_lm(arch: str = "glm4-9b", smoke: bool = False,
+             n_requests: int = 8, max_new: int = 16, seed: int = 0,
+             device=None) -> dict:
+    """``--mode lm``: serve ``n_requests`` seeded prompts through
+    ``LMEngine``. Returns the finished requests, tokens, seconds, tok/s,
+    the device's description and each kernel's launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import device_info
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import lm
+    from repro_torch.serve.clock import SystemClock
+    from repro_torch.serving.engine import LMEngine, LMRequest
+
+    dev = resolve_device(device)
+    clock = SystemClock()
+    cfg = get_arch(arch, smoke=smoke)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    eng = LMEngine(cfg, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                   clock=clock, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [LMRequest(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT,
+                                          dtype=np.int32),
+                      max_new_tokens=max_new) for _ in range(n_requests)]
+    before = launch_counts()
+    t0_us = clock.now_us()
+    done = eng.run(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = (clock.now_us() - t0_us) * 1e-6
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    tok = sum(len(r.out_tokens) for r in done)
+    info = device_info(dev)
+    where = (f"{info['device']}, power limit {info['power_limit']}"
+             if dev.type == "cuda" else "the CPU (plain torch versions)")
+    print(f"[serve] {cfg.name}: {len(done)} requests, {tok} tokens in "
+          f"{dt:.2f}s ({tok / dt:.1f} tok/s) on {where}; flash_attention "
+          f"launches {launches['flash_attention']}")
+    return {"done": done, "tokens": tok, "seconds": dt,
+            "tok_per_s": tok / dt, "device": info, "launches": launches}
+
+
 def _serve_loadgen(backend, engine, n_requests, qps, loadgen, replicas,
                    train_steps, slo_us, trace, registry, dev) -> dict:
     """``--loadgen``: the loadgen harness on this one backend."""
@@ -274,9 +336,15 @@ def main(argv=None):
     from repro_torch.synth.executors import names as engine_names
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--mode", choices=["logic"], default="logic")
+    ap.add_argument("--mode", choices=["logic", "lm"], default="logic")
     ap.add_argument("--jsc", default="jsc-s",
                     choices=["jsc-s", "jsc-m", "jsc-l"])
+    ap.add_argument("--arch", default="glm4-9b",
+                    help="--mode lm: the architecture to serve")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--mode lm: the architecture's smoke config")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="--mode lm: new tokens per request")
     ap.add_argument("--backend", choices=list(BACKENDS), default="gather",
                     help="logic inference path (bitplane = mapped netlist)")
     ap.add_argument("--engine", choices=list(engine_names()),
@@ -286,7 +354,9 @@ def main(argv=None):
                          "kernel (cuda-streamed); default cuda-streamed "
                          "on a CUDA device, numpy on the CPU")
     ap.add_argument("--requests", type=int, default=8,
-                    help=f"requests of {ROWS_PER_REQUEST} rows to serve")
+                    help=f"requests to serve (--mode logic: of "
+                         f"{ROWS_PER_REQUEST} rows; --mode lm: prompts "
+                         f"of {LM_PROMPT} tokens)")
     ap.add_argument("--train-steps", type=int, default=400,
                     help="QAT + FCP training steps before compiling "
                          "(fine-tune of a fifth of them after)")
@@ -294,7 +364,8 @@ def main(argv=None):
                     help="weights saved by repro_torch.weights."
                          "save_params_npz, served instead of training")
     ap.add_argument("--seed", type=int, default=0,
-                    help="training seed (init and batches)")
+                    help="training seed (init and batches); --mode lm: "
+                         "the weights' seed")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -334,6 +405,9 @@ def main(argv=None):
                          "the serving batch, mapped<->plan miter, "
                          "valid-code equivalence; exit 2 on any error")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args.arch, args.smoke, args.requests, args.max_new,
+                        seed=args.seed, device=args.device)
     slo_us = (tuple(float(v) for v in args.slo_us.split(","))
               if args.slo_us else None)
     return serve_logic(args.jsc, args.requests, backend=args.backend,

@@ -1,1 +1,2 @@
-"""Models of the port: the quantized, fanin-prunable MLP."""
+"""Models of the port: the quantized, fanin-prunable MLP and the LM
+stack (``layers``, ``mamba``, ``lm``)."""

@@ -1,0 +1,367 @@
+"""Shared neural layers of the LM stack: norms, RoPE, attention (full /
+chunked / decode, and the prefill entry point ``attention``), QAT+FCP-aware
+linears, the dense MLP and the initialisers.
+
+Functional style, as in the reference: parameters are read by key from a
+``repro_torch.models.lm.Params`` (or any mapping), and every function
+takes (cfg, params, inputs). Dtype policy: parameters live in float32 and
+are cast to ``cfg.compute_dtype`` at use (``LMEngine`` casts the weight
+matrices once, see ``lm.cast_weights_``).
+
+Each function keeps the reference's rounding order in the compute type:
+the full-attention logits are scaled in the compute type before the cast
+to float32, the chunked ones after it, probabilities are rounded to the
+compute type before P·V, and ``rms_norm`` works in float32. Scalars are
+multiplied as tensors of the operand's type, since torch keeps a Python
+scalar at higher precision where JAX rounds it to the operand's type,
+and the activations are written out operation by operation (``silu``,
+``gelu_tanh``), since XLA on the CPU rounds after each one where torch's
+fused versions round once.
+
+The mixture-of-experts layer waits for ``dist/`` (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, torch_dtype
+from repro_torch.core import quant as Q
+
+Tensor = torch.Tensor
+
+NEG = -1e30                   # the reference's mask value
+ATTN_CHUNK_THRESHOLD = 2048   # CPU: chunked (online-softmax) attention above
+ATTN_CHUNK = 1024
+
+
+def cdtype(cfg: ArchConfig) -> torch.dtype:
+    return torch_dtype(cfg.compute_dtype)
+
+
+def _scalar(value: float, like: Tensor) -> Tensor:
+    """A 0-d tensor of ``like``'s type and device, filled on the device
+    (``torch.tensor`` would copy it from the host and synchronize)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _cpu_low_precision(t: Tensor) -> bool:
+    return t.device.type == "cpu" and t.dtype in (torch.bfloat16,
+                                                  torch.float16)
+
+
+def matmul(x: Tensor, w: Tensor) -> Tensor:
+    """x @ w in x's type (w cast to it first, as the reference casts at
+    use). On the CPU a bfloat16 product is taken in float32 and rounded
+    once, which is what XLA's CPU backend computes for the reference
+    (torch's own CPU bfloat16 GEMM differs from it in the last bit of
+    some products); on the card the operands go to the GEMM as they are
+    (float32 accumulation, one rounding)."""
+    w = w.to(x.dtype)
+    if _cpu_low_precision(x):
+        return (x.float() @ w.float()).to(x.dtype)
+    return x @ w
+
+
+def einsum(eq: str, *ops: Tensor) -> Tensor:
+    """``torch.einsum`` in the operands' type, with ``matmul``'s rule for
+    a bfloat16 product on the CPU."""
+    if _cpu_low_precision(ops[0]):
+        return torch.einsum(eq, *(o.float() for o in ops)).to(ops[0].dtype)
+    return torch.einsum(eq, *ops)
+
+
+def silu(x: Tensor) -> Tensor:
+    """``jax.nn.silu``, operation by operation in x's type:
+    x * (1 / (1 + exp(-x)))."""
+    one = _scalar(1.0, x)
+    return x * (one / (one + torch.exp(-x)))
+
+
+def gelu_tanh(x: Tensor) -> Tensor:
+    """``jax.nn.gelu`` (its default tanh form), operation by operation
+    in x's type with its constants rounded to that type."""
+    def c(value):
+        return _scalar(value, x)
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def _softmax(x: Tensor) -> Tensor:
+    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum (torch's
+    own softmax multiplies by the sum's reciprocal)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(cfg: ArchConfig, device=None) -> Tensor:
+    dh = cfg.head_dim
+    rot = int(dh * cfg.rotary_pct) // 2 * 2
+    f32 = torch.float32
+    expo = torch.arange(0, rot, 2, dtype=f32, device=device)
+    expo = expo / _scalar(rot, expo)
+    return _scalar(1.0, expo) / _scalar(cfg.rope_theta, expo) ** expo
+
+
+def apply_rope(x: Tensor, positions: Tensor, cfg: ArchConfig) -> Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S). Rotates
+    the first ``rot`` channels as interleaved pairs (x[0::2], x[1::2]),
+    in float32, and passes the rest."""
+    dh = x.shape[-1]
+    inv = rope_freqs(cfg, x.device)
+    rot = inv.shape[0] * 2
+    ang = positions[..., None].float() * inv               # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape)
+    if rot < dh:
+        y = torch.cat([y, x_pass.to(y.dtype)], dim=-1)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: Tensor, n_rep: int) -> Tensor:
+    """(B, S, KV, dh) -> (B, S, KV*n_rep, dh)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, dh = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, dh).reshape(
+        b, s, kv * n_rep, dh)
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, device) -> Tensor:
+    qpos = torch.arange(sq, device=device)
+    kpos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def full_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                   window: int = 0) -> Tensor:
+    """q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh). Materialises Sq x Sk."""
+    h, kv = q.shape[2], k.shape[2]
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    scale = _scalar(1.0 / math.sqrt(q.shape[-1]), q)
+    logits = einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    logits = logits.float().masked_fill(~mask, NEG)
+    probs = _softmax(logits).to(q.dtype)
+    return einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                      window: int = 0, chunk: int = 1024) -> Tensor:
+    """Online-softmax (flash-style) attention: a loop over KV chunks.
+
+    Memory O(Sq * chunk) instead of O(Sq * Sk); the CPU's prefill
+    attention above ``ATTN_CHUNK_THRESHOLD``.
+    """
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // kvh)
+    v = _repeat_kv(v, h // kvh)
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    f32 = torch.float32
+    scale = torch.full((), 1.0 / math.sqrt(dh), dtype=f32, device=q.device)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), -math.inf, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=f32, device=q.device)
+    for ci in range(k.shape[1] // chunk):
+        kb = k[:, ci * chunk: (ci + 1) * chunk]
+        vb = v[:, ci * chunk: (ci + 1) * chunk]
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        logits = einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        mask = (kpos[None, :] < sk).expand(sq, chunk)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window > 0:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        logits = logits.masked_fill(~mask, NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)               # (B, Sq, H, dh)
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+              window: int = 0) -> Tensor:
+    """The prefill path's attention, q (B, S, H, dh), k, v (B, S, KV, dh).
+
+    On a CUDA tensor it is the hand-written ``flash_attention`` kernel,
+    which raises on a shape it does not take (dh > 128) rather than
+    handing it to a plain version. On a CPU tensor it is the twin of
+    the reference's ``full_attention``, or of ``chunked_attention``
+    above ``ATTN_CHUNK_THRESHOLD`` tokens.
+    """
+    if q.device.type == "cuda":
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal, window=window)
+    if max(q.shape[1], k.shape[1]) > ATTN_CHUNK_THRESHOLD:
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=ATTN_CHUNK)
+    return full_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     cache_positions: Tensor, positions: Tensor,
+                     *, window: int = 0) -> Tensor:
+    """Single-token attention against a (possibly ring) KV cache, in
+    plain torch on every device.
+
+    q: (B, 1, H, dh); caches: (B, W, KV, dh); cache_positions: (B, W)
+    absolute position per slot (-1 = empty); positions: (B,) current pos.
+    Grouped-GQA form: KV is never repeated.
+    """
+    b, _, h, dh = q.shape
+    kvh = k_cache.shape[2]
+    q5 = q.reshape(b, 1, kvh, h // kvh, dh)
+    scale = torch.full((), 1.0 / math.sqrt(dh), dtype=torch.float32,
+                       device=q.device)
+    logits = einsum("bqkgd,bwkd->bkgqw", q5, k_cache).float() * scale
+    valid = (cache_positions >= 0) & \
+        (cache_positions <= positions[:, None])              # (B, W)
+    if window > 0:
+        valid &= cache_positions > (positions[:, None] - window)
+    logits = logits.masked_fill(~valid[:, None, None, None, :], NEG)
+    probs = _softmax(logits).to(q.dtype)
+    out = einsum("bkgqw,bwkd->bqkgd", probs, v_cache)
+    return out.reshape(b, 1, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# QAT + FCP aware linear (the paper's technique inside LM blocks)
+# ---------------------------------------------------------------------------
+
+def effective_weight(w: Tensor, cfg: ArchConfig,
+                     mask: Optional[Tensor] = None) -> Tensor:
+    """DoReFa (``cfg.quant_weights``) and the FCP mask applied to a weight
+    matrix, as the reference's ``quant_linear`` applies them before its
+    cast to the compute type."""
+    if cfg.quant_weights > 0:
+        w = Q.dorefa_weight(w.float(), cfg.quant_weights)
+    if mask is not None:
+        w = w * mask.to(w.dtype)
+    return w
+
+
+def quant_linear(x: Tensor, w: Tensor, cfg: ArchConfig,
+                 mask: Optional[Tensor] = None,
+                 alpha: Optional[Tensor] = None,
+                 nonnegative: bool = False,
+                 prepared: bool = False) -> Tensor:
+    """x @ w with optional QAT (activations) + DoReFa (weights) + FCP mask.
+
+    The paper's per-layer activation selection: PACT when the input
+    range is non-negative (e.g. after relu^2), symmetric signed
+    quantization otherwise. ``prepared``: ``w`` already went through
+    ``effective_weight`` (``lm.cast_weights_``), so neither DoReFa nor
+    the mask is applied again.
+    """
+    if cfg.quant_bits > 0:
+        a = alpha if alpha is not None else torch.full(
+            (), 1.0, dtype=torch.float32, device=x.device)
+        spec = Q.select_activation(nonnegative, cfg.quant_bits)
+        x = Q.apply_act_quant(spec, x, a.to(x.dtype))
+    if not prepared:
+        w = effective_weight(w, cfg, mask)
+    return matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP
+# ---------------------------------------------------------------------------
+
+def mlp(x: Tensor, p, cfg: ArchConfig) -> Tensor:
+    dt = x.dtype
+    mask1, mask2 = p.get("mask_w1"), p.get("mask_w2")
+    alpha = p.get("pact_alpha")
+    prepared = getattr(p, "prepared", False)
+    if cfg.act == "swiglu":
+        g = quant_linear(x, p["w1"], cfg, mask1, alpha, False, prepared)
+        u = matmul(x, p["w3"])
+        h = silu(g) * u
+        nonneg = False  # silu-gated products take both signs
+    elif cfg.act == "relu2":
+        h = quant_linear(x, p["w1"], cfg, mask1, alpha, False, prepared)
+        h = torch.square(torch.relu(h))
+        nonneg = True   # squared ReLU is non-negative -> PACT branch
+    else:  # gelu
+        h = quant_linear(x, p["w1"], cfg, mask1, alpha, False, prepared)
+        h = gelu_tanh(h)
+        nonneg = False
+    return quant_linear(h, p["w2"], cfg, mask2, alpha, nonneg, prepared)
+
+
+# ---------------------------------------------------------------------------
+# Initialisers (seeded from an explicit torch.Generator, on its device)
+# ---------------------------------------------------------------------------
+
+def ninit(gen: torch.Generator, shape, scale: Optional[float] = None
+          ) -> Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).mul_(scale)
+
+
+def init_attn(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Tensor]:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": ninit(gen, (d, h * dh)),
+        "wk": ninit(gen, (d, kv * dh)),
+        "wv": ninit(gen, (d, kv * dh)),
+        "wo": ninit(gen, (h * dh, d)),
+    }
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Tensor]:
+    d, f = cfg.d_model, cfg.d_ff
+    dev = gen.device
+    p = {"w1": ninit(gen, (d, f)), "w2": ninit(gen, (f, d))}
+    if cfg.act == "swiglu":
+        p["w3"] = ninit(gen, (d, f))
+    if cfg.quant_bits > 0:
+        p["pact_alpha"] = torch.tensor(6.0, dtype=torch.float32, device=dev)
+    if cfg.fcp_fanin > 0:
+        p["mask_w1"] = torch.ones((d, f), dtype=torch.float32, device=dev)
+        p["mask_w2"] = torch.ones((f, d), dtype=torch.float32, device=dev)
+    return p

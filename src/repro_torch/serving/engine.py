@@ -1,14 +1,17 @@
-"""Batched serving engine for compiled logic networks (the paper's
-inference product): micro-batched classification with a latency
-deadline, behind the ``repro_torch.serve`` scheduler.
+"""Batched serving engines.
 
-The reference package's ``LMEngine`` (continuous-batching LM decode) is
-still to port.
+Two request kinds, as in the reference:
+  * LogicEngine — ultra-low-latency classification through the compiled
+    fixed-function logic network (the paper's product): micro-batched
+    with a latency deadline, behind the ``repro_torch.serve`` scheduler;
+  * LMEngine    — autoregressive decode with a shared KV cache pool:
+    continuous batching over slots (admit on free slot, retire on EOS /
+    max tokens), prefill attention through the flash kernel on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -230,3 +233,184 @@ class LogicEngine:
                   "mean_batch_occupancy", "n_batches",
                   "deadline_miss_rate", "shed")}
         return results, stats
+
+
+# ---------------------------------------------------------------------------
+# LM serving (continuous batching decode)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LMRequest:
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int = 16
+    eos_id: int = -1            # -1 = never
+    out_tokens: Optional[List[int]] = None
+
+
+_LM_CACHE_LEAVES = ("k", "v", "positions", "ssm", "conv")
+
+
+class LMEngine:
+    """Continuous-batching decode over a fixed slot pool.
+
+    Slots admit requests as they free up; one ``decode_step`` advances
+    every slot each tick (inactive slots carry their last token, their
+    outputs are discarded): the decode batch is static and occupancy
+    varies. Each admission runs ``prefill`` on its prompt alone and
+    splices its cache into the admitted slot of the pool, in place.
+    Greedy decoding; the argmax runs over the padded vocabulary, as in
+    the reference.
+
+    Admission sits behind the ``repro_torch.serve`` bounded priority
+    queue: ``submit`` enqueues with a priority lane and raises a typed
+    ``RequestRejected`` when ``max_pending`` is hit (backpressure), and
+    freed slots always admit the highest-priority waiter first.
+
+    ``params`` (``repro_torch.models.lm.Params``) move to ``device``
+    (default ``"cuda"``, which raises without a card), and their weight
+    matrices are cast to the compute type in place
+    (``lm.cast_weights_``); the module stays a valid input to ``lm``'s
+    functions with the same results. Everything runs under
+    ``torch.inference_mode()``.
+    """
+
+    def __init__(self, cfg, params, n_slots: int = 4, max_seq: int = 512,
+                 max_pending: Optional[int] = None, n_priorities: int = 2,
+                 clock=None, device: DeviceLike = None):
+        from repro_torch.models import lm
+        from repro_torch.serve.clock import SystemClock
+        from repro_torch.serve.sched import BoundedPriorityQueue
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = lm.cast_weights_(cfg, params.to(self.device))
+        self.clock = clock or SystemClock()
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.cache = lm.init_cache(cfg, n_slots, max_seq, device=self.device)
+        self.positions = np.zeros((n_slots,), np.int32)
+        self.active: List[Optional[LMRequest]] = [None] * n_slots
+        self.last_tok = np.zeros((n_slots, 1), np.int32)
+        self.admission = BoundedPriorityQueue(
+            max_pending if max_pending is not None else (1 << 30),
+            n_priorities)
+
+    def submit(self, req: LMRequest, priority: int = 0,
+               deadline_us: Optional[float] = None):
+        """Admit into the priority queue (typed reject when full).
+
+        ``deadline_us`` is a queueing budget (µs from enqueue): a
+        request still waiting for a decode slot past its budget is shed
+        with a typed ``RequestRejected(DEADLINE_EXCEEDED)`` on its
+        future instead of being admitted late.
+
+        Returns the request's ``ServeFuture``: resolved with the
+        finished ``LMRequest`` by ``run``, with enqueue→complete
+        latency on ``fut.latency_us``.
+        """
+        import math
+
+        from repro_torch.serve.sched import ServeFuture, ServeRequest
+
+        fut = ServeFuture()
+        fut.t_enqueue_us = self.clock.now_us()
+        self.admission.push(ServeRequest(
+            x=req, rows=1, priority=priority,
+            t_enqueue_us=fut.t_enqueue_us, future=fut,
+            deadline_us=(fut.t_enqueue_us + deadline_us
+                         if deadline_us is not None else math.inf)))
+        return fut
+
+    @staticmethod
+    def _splice_slot(cache: Dict[str, torch.Tensor],
+                     single: Dict[str, torch.Tensor], slot: int) -> None:
+        """Write ONE admitted slot of the pooled cache in place: the
+        slot's rows of every leaf, O(layers x window) writes."""
+        for key, pool in cache.items():
+            s = single[key]
+            if key in ("k", "v"):            # (L, B, W, KV, dh)
+                w = min(s.shape[2], pool.shape[2])
+                pool[:, slot].zero_()
+                pool[:, slot, :w] = s[:, 0, :w]
+            elif key == "positions":          # (B, W)
+                w = min(s.shape[1], pool.shape[1])
+                pool[slot].fill_(-1)
+                pool[slot, :w] = s[0, :w]
+            else:                             # ssm, conv: (L, B, ...)
+                pool[:, slot] = s[:, 0]
+
+    def _admit(self, req: LMRequest, slot: int):
+        from repro_torch.models import lm
+
+        s = len(req.prompt)
+        toks = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :],
+                               device=self.device)
+        logits, cache1 = lm.prefill(self.cfg, self.params, toks,
+                                    max_seq=self.max_seq)
+        for key in cache1:
+            if key not in _LM_CACHE_LEAVES:
+                raise KeyError(f"unknown cache leaf {key}")
+        # splice only the admitted slot (ring slot layouts agree because
+        # prefill sizes its ring for the pool's max_seq)
+        self._splice_slot(self.cache, cache1, slot)
+        req.out_tokens = []
+        self.active[slot] = req
+        self.positions[slot] = s
+        self.last_tok[slot, 0] = int(torch.argmax(logits[0]))
+        req.out_tokens.append(int(self.last_tok[slot, 0]))
+
+    def run(self, requests: Sequence[LMRequest] = ()) -> List[LMRequest]:
+        """Decode until the admission queue and all slots are empty.
+
+        ``requests`` are submitted at priority 0 before the loop;
+        callers using ``submit`` directly can pass nothing.
+        """
+        from repro_torch.models import lm
+        from repro_torch.serve.sched import RejectReason, RequestRejected
+
+        for r in requests:
+            self.submit(r)
+        done: List[LMRequest] = []
+        sreqs: List[Optional[Any]] = [None] * self.n_slots
+        with torch.inference_mode():
+            while len(self.admission) or any(a is not None
+                                             for a in self.active):
+                # shed waiters whose queueing budget expired before a
+                # slot freed up
+                now_us = self.clock.now_us()
+                for expired in self.admission.shed_expired(now_us):
+                    expired.future.t_done_us = now_us
+                    expired.future.set_exception(RequestRejected(
+                        RejectReason.DEADLINE_EXCEEDED,
+                        f"expired {now_us - expired.deadline_us:.0f} µs "
+                        f"before a decode slot freed"))
+                # admit, highest priority lane first
+                for i in range(self.n_slots):
+                    if self.active[i] is None and len(self.admission):
+                        (sreq,) = self.admission.pop_batch(1)
+                        sreqs[i] = sreq
+                        self._admit(sreq.x, i)
+                # decode tick
+                logits, self.cache = lm.decode_step(
+                    self.cfg, self.params, self.cache,
+                    torch.as_tensor(self.last_tok, device=self.device),
+                    torch.as_tensor(self.positions, device=self.device))
+                nxt = logits.argmax(-1).cpu().numpy()
+                for i in range(self.n_slots):
+                    req = self.active[i]
+                    if req is None:
+                        continue
+                    tok = int(nxt[i])
+                    req.out_tokens.append(tok)
+                    self.positions[i] += 1
+                    self.last_tok[i, 0] = tok
+                    if (tok == req.eos_id
+                            or len(req.out_tokens) >= req.max_new_tokens
+                            or self.positions[i] >= self.max_seq - 1):
+                        done.append(req)
+                        self.active[i] = None
+                        if sreqs[i] is not None:
+                            sreqs[i].future.t_done_us = self.clock.now_us()
+                            sreqs[i].future.set_result(req)
+                            sreqs[i] = None
+        return done

@@ -13,6 +13,10 @@ model in one ``.npz`` with a flat layout:
     layers.{i}.{w,b,alpha,bn_gamma,bn_beta}   parameters
     masks.{i}                                 FCP masks (bool)
     bn.mean.{i}, bn.var.{i}                   BN running statistics
+
+``lm_params_from_jax`` does for the LM stack what ``params_from_jax``
+does for the MLP: the reference's ``lm.init_params`` pytree as the port's
+``repro_torch.models.lm.Params``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models.mlp import MLP
 
 _PARAMS = ("w", "b", "alpha", "bn_gamma", "bn_beta")
@@ -98,3 +103,38 @@ def load_params_npz(path) -> MLP:
         bn_state = {"mean": [arrays[f"bn.mean.{i}"] for i in range(n_layers)],
                     "var": [arrays[f"bn.var.{i}"] for i in range(n_layers)]}
     return params_from_jax({"layers": layers}, masks, bn_state)
+
+
+def lm_params_from_jax(cfg: ArchConfig, params: dict):
+    """The reference's LM parameters (``repro.models.lm.init_params``'s
+    pytree as numpy arrays, or anything ``np.asarray`` accepts) as the
+    port's ``Params`` on the CPU: ``embed``, ``final_norm``, ``lm_head``,
+    and under ``layers`` the leaves ``ln1``, ``ln2``, ``attn.*``,
+    ``mlp.*``, ``mamba.*``, ``ln_attn_out``, ``ln_mamba_out`` stacked on a
+    leading L axis, which becomes ``Params.layers``. Values are copied
+    as float32."""
+    from repro_torch.models.lm import Params, _require_supported
+    _require_supported(cfg)
+
+    def leaf(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict)
+                else leaf(np.asarray(v)[i]) for k, v in tree.items()}
+
+    n = {np.asarray(v).shape[0] for v in _leaves(params["layers"])}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"layers stacked {sorted(n)} deep, expected "
+                         f"{cfg.n_layers}")
+    tree = {k: leaf(v) for k, v in params.items() if k != "layers"}
+    tree["layers"] = [layer(params["layers"], i) for i in range(cfg.n_layers)]
+    return Params(tree)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v

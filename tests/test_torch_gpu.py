@@ -835,6 +835,102 @@ def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+# the LM stack: prefill attention through the flash kernel
+
+@pytest.mark.parametrize("name", ["glm4-9b", "hymba-1.5b"])
+def test_lm_attention_mixer_runs_the_flash_kernel(cuda_device, name):
+    """``_attention_mixer`` at smoke width (bf16) on the card launches the
+    flash kernel once and agrees with its CPU twin (``full_attention``):
+    the kernel is within 2e-2 of the plain attention, which ``wo`` carries
+    to each output at most 2e-2 x its column's L1 norm, plus bf16
+    rounding of the products (2^-6 x max |y|); k and v are the same
+    products on both devices."""
+    import copy
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    cfg = SMOKES[name]
+    attn = lm.init_params(cfg, torch.Generator().manual_seed(0)).layers[0].attn
+    x = torch.randn((2, 80, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    pos = torch.arange(80)
+    want, (k, v) = lm._attention_mixer(cfg, attn, x, pos, window=cfg.window)
+    launches = flash_attention.launches
+    got, (kc, vc) = lm._attention_mixer(
+        cfg, copy.deepcopy(attn).to(cuda_device), x.to(cuda_device),
+        pos.to(cuda_device), window=cfg.window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    wo = attn.wo.to(torch.bfloat16).float()
+    tol = (2e-2 * wo.abs().sum(0).max() + 2.0 ** -6 * want.float().abs().max())
+    assert (got.cpu().float() - want.float()).abs().max() <= tol
+    for a, b in ((kc, k), (vc, v)):
+        assert (a.cpu().float() - b.float()).abs().max() <= \
+            2.0 ** -7 * b.float().abs().max()
+
+
+def test_lm_attention_refuses_dh_over_128_on_the_card(cuda_device):
+    """dh 192 (nemotron-4-340b's) raises on the card instead of running a
+    plain version."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(SMOKES["glm4-9b"], d_head=192)
+    attn = lm.init_params(cfg, torch.Generator(device=cuda_device)
+                          .manual_seed(0)).layers[0].attn
+    x = torch.zeros((1, 4, cfg.d_model), device=cuda_device,
+                    dtype=torch.bfloat16)
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="dh"):
+        lm._attention_mixer(cfg, attn, x, torch.arange(4, device=cuda_device))
+    assert flash_attention.launches == launches
+
+
+def test_lm_engine_on_card_matches_single_request(cuda_device):
+    """``LMEngine`` on the card gives a single-request greedy loop's
+    tokens; where a batch of slots and a batch of one part, the loop's
+    logit for the engine's token lies within four bf16 steps of its top
+    (4 x 2^-7 |top|): products of a batch of slots and of a batch of one
+    round in other orders. The loop then takes the engine's token and
+    goes on comparing to the last token."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import LMEngine, LMRequest
+    cfg = SMOKES["glm4-9b"]
+    params = lm.init_params(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 16, dtype=np.int32)
+               for _ in range(3)]
+    launches = flash_attention.launches
+    eng = LMEngine(cfg, params, n_slots=2, max_seq=64, device=cuda_device)
+    reqs = [LMRequest(prompt=p, max_new_tokens=6) for p in prompts]
+    done = eng.run(reqs)
+    assert len(done) == 3
+    assert flash_attention.launches == launches + 3 * cfg.n_layers
+
+    for req in reqs:
+        with torch.inference_mode():
+            logits, cache = lm.prefill(
+                cfg, params, torch.as_tensor(req.prompt[None],
+                                             device=cuda_device), max_seq=64)
+            pos = len(req.prompt)
+            for i, tok in enumerate(req.out_tokens):
+                row = logits[0].float()
+                top = float(row.max())
+                if int(torch.argmax(row)) != tok:
+                    assert top - float(row[tok]) <= 4 * 2.0 ** -7 * abs(top), \
+                        (i, tok, top, float(row[tok]))
+                logits, cache = lm.decode_step(
+                    cfg, params, cache,
+                    torch.tensor([[tok]], dtype=torch.int32,
+                                 device=cuda_device),
+                    torch.tensor([pos], dtype=torch.int32,
+                                 device=cuda_device))
+                pos += 1
+
+
 def test_entry_points_without_a_card_raise():
     """Without a card, the kernel bench and the device route of
     ``simulate`` called without ``device=`` raise instead of running on

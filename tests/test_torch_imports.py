@@ -56,11 +56,20 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.bench.latency",
                                     "repro_torch.bench.run",
                                     "repro_torch.bench.check_regression",
-                                    "repro_torch.bench.history"])
+                                    "repro_torch.bench.history",
+                                    "repro_torch.configs",
+                                    "repro_torch.configs.base",
+                                    "repro_torch.models.layers",
+                                    "repro_torch.models.mamba",
+                                    "repro_torch.models.lm",
+                                    "repro_torch.data.tokens",
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.weights",
+                                    "repro_torch.examples.serve_lm"])
 def test_training_modules_import_without_jax(module):
-    """Each module of the training, serving-at-scale, verification and
-    benchmark slices, alone in a fresh interpreter, leaves JAX and the
-    reference package out of ``sys.modules``."""
+    """Each module of the training, serving-at-scale, verification,
+    benchmark and LM slices, alone in a fresh interpreter, leaves JAX
+    and the reference package out of ``sys.modules``."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -109,6 +118,14 @@ def test_entry_points_default_to_cuda():
               "--replicas", "2", "--slo-us", "2000,20000"])
     with pytest.raises(NoCudaDeviceError):   # the launcher's --check
         main(["--mode", "logic", "--backend", "bitplane", "--check"])
+    with pytest.raises(NoCudaDeviceError):   # the LM launcher
+        main(["--mode", "lm", "--smoke", "--requests", "1"])
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import LMEngine
+    cfg = SMOKES["glm4-9b"]
+    with pytest.raises(NoCudaDeviceError):
+        LMEngine(cfg, lm.init_params(cfg, torch.Generator()))
     from repro_torch.bench.table1_jsc import run as table1
     from repro_torch.check.__main__ import main as check_main
     from repro_torch.examples import quickstart, serve_logic
@@ -118,7 +135,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.synth.simulate import random_words
     mapped = _tiny_mapped()
     words = random_words(mapped.n_pis, 2, seed=0)
+    from repro_torch.examples import serve_lm
     for entry in (lambda: check_main(["--fast"]),
+                  lambda: serve_lm.main([]),
                   lambda: check_main(["--static"]),
                   lambda: table1(steps=1, archs=("jsc-s",)),
                   lambda: quickstart.main([]),
