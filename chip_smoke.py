@@ -178,10 +178,10 @@ Phases, each printing its own lines:
                 launch count at 0: every request served, flash_attention
                 launched 8 x 40 times (one a layer per prefill), the
                 tokens those of a single-request greedy loop on the card
-                or, where they part, at a top-2 gap under LM_ATOL +
-                LM_RTOL |top| (the reference's decode-vs-forward
-                tolerance); prefill + decode_step against forward at S
-                48 within that tolerance; the kernel within 2e-2 of its
+                or, where they part, within LM_PART_TOL |top| of the
+                loop's top; prefill + decode_step against forward at S
+                48 within LM_ATOL + LM_RTOL |x| (the reference's
+                decode-vs-forward tolerance); the kernel within 2e-2 of its
                 plain version and of the full_attention /
                 chunked_attention twins on the q, k, v of layer 0 of a
                 served prefill and of a 2,100-token one, then timed
@@ -191,7 +191,22 @@ Phases, each printing its own lines:
                 hymba-1.5b at full width with a 1,100-token prompt past
                 its 1,024 window and three of 32 (max_seq 1,200, 8 new
                 tokens): a window-long ring cache, 4 x 32 flash
-                launches, decode against forward on the long prompt.
+                launches, decode against forward on the long prompt;
+  14. lm2     — the MoE and encoder-decoder families: mixtral-8x22b at
+                full width cut to 4 of its 56 layers (41.7 GB float32 at
+                init), served through ``LMEngine`` with the lm phase's
+                traffic (8 x 4 flash launches, the single-request loop,
+                decode against forward at capacity factor 8), its decode
+                step against its byte bound (every expert's weights);
+                then seamless-m4t-large-v2 at full width and depth, a
+                batch of 4 with 256 frames of ``enc_embeds`` through
+                ``prefill(enc_embeds=)`` and 15 greedy ``decode_step``s
+                (24 + 2 x 24 flash launches in prefill, 24 a step),
+                decode against forward; the flash kernel within 2e-2 of
+                its plain versions at each new shape (mixtral's
+                windowed GQA prefill, seamless's encoder, cross-attention
+                in prefill and in decode), timed beside SDPA (rows
+                7d-7g of the kernels line).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -332,6 +347,20 @@ def tf32(enabled: bool):
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
+
+
+def count_syncs(torch, fn) -> int:
+    """Synchronizations one call of ``fn`` makes: the warnings torch's
+    sync debug mode gives, one a synchronizing operation (not its
+    one-time note that the mode is a prototype)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in seen)
 
 
 def nbytes(*tensors) -> int:
@@ -2034,14 +2063,7 @@ def phase_latency(torch, card):
             us, n = device_us(fn, None, 10)
             busy[name] = us * n / 10 if n else None
             torch.cuda.synchronize()
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    fn()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            syncs[name] = sum("synchroniz" in str(w.message) for w in seen)
+            syncs[name] = count_syncs(torch, fn)
     print(f"[latency] {len(files)} records, {n_checked} metrics checked, "
           f"ledger {n_entries} entries (a rerun skipped); launches in the "
           f"latency section {section_counts}, in both {counts}; "
@@ -2451,16 +2473,19 @@ def logit_gap(logits):
     return float(top[0] - top[1])
 
 
-def decode_vs_forward(torch, lm, cfg, params, tokens, s, max_seq, label):
+def decode_vs_forward(torch, lm, cfg, params, tokens, s, max_seq, label,
+                      **kw):
     """prefill(x[:s]) + decode_step(x[s]) against forward(x[:s+1])'s last
-    logits: within lm_tol, and argmax equal in every row whose top-2 gap
-    exceeds it. Returns the largest |difference|."""
+    logits (``kw``: the encoder's ``enc_embeds``, the same for both):
+    within lm_tol, and argmax equal in every row whose top-2 gap exceeds
+    it. Returns the largest |difference|."""
     b = tokens.shape[0]
     with torch.inference_mode():
-        hidden, _ = lm.forward(cfg, params, tokens)
+        hidden, _, _ = lm.forward(cfg, params, tokens, **kw)
         want = lm.logits_head(cfg, params, hidden[:, -1]).float()
         del hidden
-        _, cache = lm.prefill(cfg, params, tokens[:, :s], max_seq=max_seq)
+        _, cache = lm.prefill(cfg, params, tokens[:, :s], max_seq=max_seq,
+                              **kw)
         got, _ = lm.decode_step(
             cfg, params, cache, tokens[:, s:s + 1],
             torch.full((b,), s, dtype=torch.int32, device=tokens.device))
@@ -2511,26 +2536,116 @@ def serve_timed(torch, lm, eng, reqs):
     return done, seconds, launches, timed["prefill"], timed["decode_step"]
 
 
-def record_attention(layers, keep=lambda q: True):
-    """Keep a copy of the first (q, k, v, kwargs) with ``keep(q)`` true
-    that the prefill attention entry point is given while the context
-    is open."""
-    seen = []
+def record_attention(layers, kind=lambda q, k, kw: "prefill"):
+    """While the context is open, count each call of the attention entry
+    point under ``kind(q, k, kwargs)`` (None: neither counted nor kept)
+    and keep a copy of the first (q, k, v, kwargs) of each kind. Yields
+    (first, counts), two dicts by kind."""
+    first, counts = {}, {}
     real = layers.attention
 
     def recording(q, k, v, **kw):
-        if not seen and keep(q):
-            seen.append((q.clone(), k.clone(), v.clone(), kw))
+        label = kind(q, k, kw)
+        if label is not None:
+            counts[label] = counts.get(label, 0) + 1
+            if label not in first:
+                first[label] = (q.clone(), k.clone(), v.clone(), kw)
         return real(q, k, v, **kw)
 
     @contextlib.contextmanager
     def ctx():
         layers.attention = recording
         try:
-            yield seen
+            yield first, counts
         finally:
             layers.attention = real
     return ctx()
+
+
+def single_loop_partings(torch, lm, cfg, params, reqs, dev, max_seq, label):
+    """The served requests again through a single-request greedy loop on
+    the card: where the engine's token is not the loop's argmax, the
+    loop's logit for it lies within LM_PART_TOL |top| of the top; the
+    loop then takes the engine's token and goes on comparing to the last
+    token. Returns the partings (request, token, gap)."""
+    parted = []
+    with torch.inference_mode():
+        for j, req in enumerate(reqs):
+            logits, cache = lm.prefill(
+                cfg, params, torch.as_tensor(req.prompt[None], device=dev),
+                max_seq=max_seq)
+            pos = len(req.prompt)
+            for i, tok in enumerate(req.out_tokens):
+                row_ = logits[0].float()
+                if int(row_.argmax()) != tok:
+                    top = float(row_.max())
+                    gap = top - float(row_[tok])
+                    parted.append((j, i, gap))
+                    require(gap <= LM_PART_TOL * abs(top),
+                            f"{label}: request {j} parts from the single "
+                            f"loop at token {i}: the engine's token is {gap} "
+                            f"under the top {top} (limit {LM_PART_TOL} "
+                            "|top|)")
+                if i + 1 == len(req.out_tokens):
+                    break
+                logits, cache = lm.decode_step(
+                    cfg, params, cache,
+                    torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                    torch.tensor([pos], dtype=torch.int32, device=dev))
+                pos += 1
+    return parted
+
+
+def partings_text(parted, n_tok):
+    return ("every token equal" if not parted else
+            "; ".join(f"request {j} parts at token {i}, the engine's token "
+                      f"{g:.5f} under the top (limit {LM_PART_TOL} |top|)"
+                      for j, i, g in parted)) + f" over {n_tok} tokens"
+
+
+def flash_row(torch, name, q, k, v, kw, launches, err):
+    """Row of the kernels line for flash_attention at one recorded shape:
+    CUDA-event ms of the wrapper, of its plain version and of SDPA (held
+    within LM_KERNEL_TOL of the kernel), and the bound from this shape's
+    work (4 dh flops for each (query, key) pair its mask keeps, the
+    operands read and the output written once). Returns (row, device µs
+    a launch, SDPA device µs a call, bytes, flops); a device time the
+    profiler did not see is None."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers as L
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    mask = L._mask(sq, sk, causal, window, q.device)
+    flops = 4 * dh * b * h * int(mask.sum())
+    fn = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    got = fn()
+    n_bytes = nbytes(q, k, v, got)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    # the library in its best mode: a mask only where the window cuts
+    cut = window and window < sk
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask if cut else None,
+        is_causal=bool(causal and not cut), enable_gqa=True)
+    check_close({}, name, sdpa().transpose(1, 2), got, LM_KERNEL_TOL,
+                "against the library call")
+    src, replaces = KERNELS["flash_attention"]
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": time_ms(fn), "plain_ms": time_ms(
+               lambda: attention_ref(q, k, v, **kw), iters=20, reps=3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa)}
+    dev_us, _ = device_us(fn, "flash_attention", 20)
+    sdpa_us, sdpa_n = device_us(sdpa, None, 20)
+    return (row, dev_us, sdpa_us * sdpa_n / 20 if sdpa_n else None, n_bytes,
+            flops)
+
+
+def us_text(us):
+    return "not seen" if us is None else f"{us:.2f} us"
 
 
 def decode_profile(torch, lm, cfg, params, cache, toks, pos, n=5):
@@ -2556,24 +2671,24 @@ def decode_profile(torch, lm, cfg, params, cache, toks, pos, n=5):
                             getattr(e, "self_cuda_time_total", 0.0))
             kernels += e.count
     busy /= n
-    with torch.inference_mode(), warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            lm.decode_step(cfg, params, cache, toks, pos)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in seen)
+    with torch.inference_mode():
+        syncs = count_syncs(
+            torch, lambda: lm.decode_step(cfg, params, cache, toks, pos))
     return wall_us, busy, 1.0 - busy / wall_us, kernels / n, syncs
 
 
 def decode_bytes(cfg, params, cache, batch):
-    """Least bytes a decode step moves: every weight read once (the
-    embedding: its ``batch`` rows), the whole cache read once (KV ring,
-    its positions, the SSM state and conv tail), and the SSM state and
-    conv tail written once (a step replaces them)."""
+    """Least bytes a decode step moves: every decoder weight read once
+    (the embedding: its ``batch`` rows; every expert of an MoE layer,
+    since the reference computes every expert's buffer, full or not),
+    the whole cache read once (KV ring, its positions, the SSM state and
+    conv tail, the encoder's ``enc_out`` that cross-attention reads), and
+    the SSM state and conv tail written once (a step replaces them). The
+    encoder's weights (``enc_layers``, ``enc_norm``) are never read in a
+    decode step."""
     n = sum(t.numel() * t.element_size()
-            for name, t in params.named_parameters() if name != "embed")
+            for name, t in params.named_parameters()
+            if name != "embed" and not name.startswith("enc_"))
     n += batch * cfg.d_model * params.embed.element_size()
     n += sum(t.numel() * t.element_size() for t in cache.values())
     return n + sum(t.numel() * t.element_size() for key, t in cache.items()
@@ -2618,10 +2733,7 @@ def phase_lm(torch, card, errs):
     import gc
 
     import numpy as np
-    import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serving.engine import LMEngine, LMRequest
@@ -2644,7 +2756,7 @@ def phase_lm(torch, card, errs):
     reqs = [LMRequest(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT,
                                           dtype=np.int32),
                       max_new_tokens=LM_NEW) for _ in range(LM_REQUESTS)]
-    with record_attention(L) as seen:
+    with record_attention(L) as (seen, _):
         done, seconds, launches, prefill_ms, decode_ms = serve_timed(
             torch, lm, eng, reqs)
     require(len(done) == LM_REQUESTS
@@ -2656,35 +2768,8 @@ def phase_lm(torch, card, errs):
             f"run, expected {LM_REQUESTS} x {cfg.n_layers}")
     n_tok = sum(len(r.out_tokens) for r in reqs)
 
-    # the same requests through a single-request greedy loop on the card:
-    # where the engine's token is not the loop's argmax, the loop's logit
-    # for it lies within LM_PART_TOL |top| of the top; the loop then
-    # takes the engine's token and goes on comparing to the last token
-    parted = []
-    with torch.inference_mode():
-        for j, req in enumerate(reqs):
-            logits, cache = lm.prefill(
-                cfg, params, torch.as_tensor(req.prompt[None], device=dev),
-                max_seq=LM_MAX_SEQ)
-            pos = len(req.prompt)
-            for i, tok in enumerate(req.out_tokens):
-                row_ = logits[0].float()
-                if int(row_.argmax()) != tok:
-                    top = float(row_.max())
-                    gap = top - float(row_[tok])
-                    parted.append((j, i, gap))
-                    require(gap <= LM_PART_TOL * abs(top),
-                            f"lm: request {j} parts from the single loop at "
-                            f"token {i}: the engine's token is {gap} under "
-                            f"the top {top} (limit {LM_PART_TOL} |top|)")
-                if i + 1 == len(req.out_tokens):
-                    break
-                logits, cache = lm.decode_step(
-                    cfg, params, cache,
-                    torch.tensor([[tok]], dtype=torch.int32, device=dev),
-                    torch.tensor([pos], dtype=torch.int32, device=dev))
-                pos += 1
-    del cache
+    parted = single_loop_partings(torch, lm, cfg, params, reqs, dev,
+                                  LM_MAX_SEQ, "lm")
 
     # 2. decode against forward at full width
     toks = torch.as_tensor(np.random.default_rng(2).integers(
@@ -2693,12 +2778,12 @@ def phase_lm(torch, card, errs):
                                 LM_DECODE_S + 8, LM_ARCH)
 
     # 3. the kernel against its plain versions at the path's shapes
-    q, k, v, kw = seen[0]
-    with record_attention(L) as long_seen, torch.inference_mode():
+    q, k, v, kw = seen["prefill"]
+    with record_attention(L) as (long_seen, _), torch.inference_mode():
         lm.prefill(cfg, params, torch.as_tensor(np.random.default_rng(3)
                    .integers(0, cfg.vocab_size, (1, LM_LONG_PREFILL))
                    .astype(np.int32), device=dev))
-    ql, kl, vl, kwl = long_seen[0]
+    ql, kl, vl, kwl = long_seen["prefill"]
     require(q.shape == (1, LM_PROMPT, cfg.n_heads, cfg.head_dim)
             and q.dtype == torch.bfloat16 and ql.shape[1] == LM_LONG_PREFILL
             and LM_LONG_PREFILL > L.ATTN_CHUNK_THRESHOLD,
@@ -2713,24 +2798,10 @@ def phase_lm(torch, card, errs):
 
     # row 7c: the kernel at the served prefill's shape
     b, sq, h, dh = q.shape
-    flops = 4 * dh * b * h * sum(i + 1 for i in range(sq))      # causal
-    n_bytes = nbytes(q, k, v, got)
-    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
-    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    check_close({}, "flash_attention", sdpa().transpose(1, 2), got,
-                LM_KERNEL_TOL, "against the library call")
-    fn = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
-    src, replaces = KERNELS["flash_attention"]
-    row = {"name": "flash_attention glm4-9b prefill", "route": "cuda",
-           "source": src, "replaces": replaces, "launches": launches,
-           "max_abs_err": errs["flash_attention glm4-9b prefill"],
-           "ms": time_ms(fn), "plain_ms": time_ms(
-               lambda: attention_ref(q, k, v, **kw), iters=20, reps=3),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa)}
-    dev_us, dev_n = device_us(fn, "flash_attention", 20)
-    sdpa_us, sdpa_n = device_us(sdpa, None, 20)
+    row, dev_us, sdpa_us, n_bytes, flops = flash_row(
+        torch, "flash_attention glm4-9b prefill", q, k, v, kw, launches,
+        errs["flash_attention glm4-9b prefill"])
+    b_ms, b_by = row["bound_ms"], row["bound_by"]
 
     # 4. the decode step: time, idle share, launches, bound
     toks4 = torch.as_tensor(eng.last_tok, device=dev)
@@ -2750,13 +2821,8 @@ def phase_lm(torch, card, errs):
           f"({len(prefill_ms)}), decode median "
           f"{statistics.median(decode_ms):.3f} ms a step ({len(decode_ms)}) "
           f"on {card}")
-    print(f"[lm] single-request loop: "
-          + ("every token equal" if not parted else
-             "; ".join(f"request {j} parts at token {i}, the engine's "
-                       f"token {g:.5f} under the top (limit {LM_PART_TOL} "
-                       f"|top|)" for j, i, g in parted))
-          + f" over {n_tok} tokens"
-          + f"; decode against forward (S {LM_DECODE_S}) max abs err "
+    print(f"[lm] single-request loop: {partings_text(parted, n_tok)}"
+          f"; decode against forward (S {LM_DECODE_S}) max abs err "
           f"{dvf_err:.5f} (tolerance {LM_ATOL} + {LM_RTOL}|x|)")
     print(f"[lm] decode step ({LM_SLOTS} slots): profiled {wall_us:.1f} us, "
           f"device busy {busy_us:.1f} us, idle share {idle:.4f}, "
@@ -2767,18 +2833,15 @@ def phase_lm(torch, card, errs):
           f"{card}")
     print(f"[lm] flash_attention at glm4-9b's prefill (B {b}, S {sq}, H {h}, "
           f"KV {k.shape[2]}, dh {dh}, bf16): {row['ms']:.5f} ms, device "
-          + (f"{dev_us:.2f} us a launch" if dev_n else "not seen")
-          + f"; plain {row['plain_ms']:.5f} ms; SDPA {row['library_ms']:.5f} "
-          f"ms (device "
-          + (f"{sdpa_us * sdpa_n / 20:.2f} us a call" if sdpa_n else
-             "not seen")
-          + f"); bound {b_ms:.7f} ms by {b_by} "
+          f"{us_text(dev_us)} a launch; plain {row['plain_ms']:.5f} ms; SDPA "
+          f"{row['library_ms']:.5f} ms (device {us_text(sdpa_us)} a call); "
+          f"bound {b_ms:.7f} ms by {b_by} "
           f"({n_bytes} bytes, {flops} operations at 989 T/s); max abs err "
           f"{row['max_abs_err']:.4g}; kernel within {LM_KERNEL_TOL} of "
           f"full_attention at S {LM_PROMPT} and of chunked_attention at S "
           f"{LM_LONG_PREFILL} (max abs err "
           f"{long_errs['flash_attention']:.4g}) on {card}")
-    del eng, params, seen, q, k, v, got, qt, kt, vt, toks4, pos4
+    del eng, params, seen, q, k, v, got, toks4, pos4
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2795,7 +2858,8 @@ def phase_lm(torch, card, errs):
         LMRequest(prompt=rng.integers(0, hcfg.vocab_size, HYBRID_SHORT,
                                       dtype=np.int32),
                   max_new_tokens=HYBRID_NEW) for _ in range(3)]
-    with record_attention(L, lambda q: q.shape[1] == HYBRID_LONG) as hseen:
+    with record_attention(L, lambda q, k, kw: "long" if q.shape[1] ==
+                          HYBRID_LONG else None) as (hseen, _):
         hdone, hsec, hlaunch, hpre, hdec = serve_timed(torch, lm, heng,
                                                        hreqs)
     require(len(hdone) == 4 and all(len(r.out_tokens) == HYBRID_NEW
@@ -2810,7 +2874,7 @@ def phase_lm(torch, card, errs):
     # 76 query rows past the sliding window
     require(len(hseen) == 1, f"lm {LM_HYBRID}: no {HYBRID_LONG}-token "
             "prefill attention was recorded")
-    hq, hk, hv, hkw = hseen[0]
+    hq, hk, hv, hkw = hseen["long"]
     require(hkw.get("window") == hcfg.window == 1024
             and hq.shape == (1, HYBRID_LONG, hcfg.n_heads, hcfg.head_dim)
             and hk.shape[2] == hcfg.n_kv_heads and hq.shape[1] > hcfg.window
@@ -2856,6 +2920,257 @@ def phase_lm(torch, card, errs):
     return row
 
 
+MOE_ARCH, ENCDEC_ARCH = "mixtral-8x22b", "seamless-m4t-large-v2"
+MOE_LAYERS = 4            # of 56: 41.7 GB of float32 at init on one card
+MOE_DVF_CF = 8.0          # tests/test_models.py:53-54: no token drops
+ENCDEC_BATCH, ENCDEC_FRAMES = 4, 256
+
+
+def phase_lm_moe_encdec(torch, card, errs):
+    """The MoE and encoder-decoder families on the card. mixtral-8x22b
+    at full width, cut to MOE_LAYERS of its 56 layers, served through
+    ``LMEngine`` with the glm4 phase's traffic (every request served,
+    flash launched once a layer a request, the tokens a single-request
+    loop's or within LM_PART_TOL of its top), decode against forward at
+    capacity factor 8; then seamless-m4t-large-v2 at full width and
+    depth, a batch of 4 through ``prefill(enc_embeds=)`` and greedy
+    ``decode_step``, decode against forward. The flash kernel is held
+    against ``attention_ref`` and its CPU twin at every new shape the
+    two serve (mixtral's windowed GQA prefill; seamless's encoder,
+    cross-attention in prefill and in decode) and timed beside SDPA.
+    Returns rows 7d-7g of the kernels line."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import LMEngine, LMRequest
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+
+    # 1. mixtral-8x22b, its depth cut, through the engine
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    f32_bytes = sum(t_.numel() * 4 for t_ in params.parameters())
+    t_init = time.perf_counter() - t0
+    eng = LMEngine(cfg, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                   device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [LMRequest(prompt=rng.integers(0, cfg.vocab_size, LM_PROMPT,
+                                          dtype=np.int32),
+                      max_new_tokens=LM_NEW) for _ in range(LM_REQUESTS)]
+    with record_attention(L) as (seen, _):
+        done, seconds, launches, prefill_ms, decode_ms = serve_timed(
+            torch, lm, eng, reqs)
+    require(len(done) == LM_REQUESTS
+            and all(len(r.out_tokens) == LM_NEW for r in reqs),
+            f"{MOE_ARCH}: {len(done)} requests done")
+    require(launches == LM_REQUESTS * cfg.n_layers,
+            f"{MOE_ARCH}: flash_attention launched {launches} times in the "
+            f"engine's run, expected {LM_REQUESTS} x {cfg.n_layers}")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    parted = single_loop_partings(torch, lm, cfg, params, reqs, dev,
+                                  LM_MAX_SEQ, MOE_ARCH)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, LM_DECODE_S + 1)).astype(np.int32), device=dev)
+    dvf = decode_vs_forward(
+        torch, lm, dataclasses.replace(cfg, capacity_factor=MOE_DVF_CF),
+        params, toks, LM_DECODE_S, LM_DECODE_S + 8, MOE_ARCH)
+
+    # row 7d: the kernel at the served prefill (window, GQA 6:1, dh 128)
+    q, k, v, kw = seen["prefill"]
+    require(q.shape == (1, LM_PROMPT, 48, 128) and k.shape[2] == 8
+            and kw.get("window") == cfg.window == 4096
+            and q.dtype == torch.bfloat16,
+            f"{MOE_ARCH}: recorded attention inputs {tuple(q.shape)} "
+            f"{tuple(k.shape)} {q.dtype} {kw}")
+    name = "flash_attention mixtral-8x22b prefill"
+    check_attention(errs, name, q, k, v, kw, "served prefill layer 0")
+    row, dev_us, sdpa_us, n_bytes, flops = flash_row(
+        torch, name, q, k, v, kw, launches, errs[name])
+    rows.append(row)
+    wall_us, busy_us, idle, kernels, syncs = decode_profile(
+        torch, lm, cfg, params, eng.cache,
+        torch.as_tensor(eng.last_tok, device=dev),
+        torch.as_tensor(eng.positions, device=dev))
+    step_bytes = decode_bytes(cfg, params, eng.cache, LM_SLOTS)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm2] {MOE_ARCH}: depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers at full width (d {cfg.d_model}, H "
+          f"{cfg.n_heads}, KV {cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.moe_top_k}, window "
+          f"{cfg.window}, capacity factor {cfg.capacity_factor}); "
+          f"{cfg.param_count() / 1e9:.2f} B parameters, "
+          f"{f32_bytes / 1e9:.1f} GB float32 at init in {t_init:.1f}s, bf16 "
+          f"after the engine's cast; max_memory_allocated {peak} bytes on "
+          f"{card}")
+    print(f"[lm2] {MOE_ARCH}: {LM_REQUESTS} requests of {LM_PROMPT} tokens, "
+          f"{LM_SLOTS} slots, max_seq {LM_MAX_SEQ}: {n_tok} tokens in "
+          f"{seconds:.3f}s ({n_tok / seconds:.1f} tok/s); flash_attention "
+          f"launches {launches} ({cfg.n_layers} a request); prefill median "
+          f"{statistics.median(prefill_ms):.3f} ms a request, decode median "
+          f"{statistics.median(decode_ms):.3f} ms a step "
+          f"({len(decode_ms)}); decode step profiled {wall_us:.1f} us, "
+          f"device busy {busy_us:.1f} us, idle share {idle:.4f}, "
+          f"{kernels:.0f} kernel launches and {syncs} synchronizations a "
+          f"step; bound {step_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({step_bytes} bytes over 3.35 TB/s: every expert's bf16 weights "
+          f"and the cache) on {card}")
+    print(f"[lm2] {MOE_ARCH}: single-request loop: "
+          f"{partings_text(parted, n_tok)}; decode against forward (S "
+          f"{LM_DECODE_S}, capacity factor {MOE_DVF_CF}) max abs err "
+          f"{dvf:.5f} (tolerance {LM_ATOL} + {LM_RTOL}|x|); flash_attention "
+          f"at the prefill (B 1, S {LM_PROMPT}, H 48, KV 8, dh 128, window "
+          f"{cfg.window}, bf16): {row['ms']:.5f} ms, device "
+          f"{us_text(dev_us)} a launch; plain {row['plain_ms']:.5f} ms; SDPA "
+          f"{row['library_ms']:.5f} ms (device {us_text(sdpa_us)} a call); "
+          f"bound {row['bound_ms']:.7f} ms by {row['bound_by']} ({n_bytes} "
+          f"bytes, {flops} operations at 989 T/s); max abs err "
+          f"{row['max_abs_err']:.4g} on {card}")
+    del eng, params, seen, q, k, v, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. seamless-m4t-large-v2 at full width and depth
+    t_enc = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(ENCDEC_ARCH)
+    params = lm.cast_weights_(cfg, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)))
+    rng = np.random.default_rng(0)
+    enc = torch.as_tensor(rng.normal(size=(
+        ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model)) * 0.1,
+        device=dev).to(torch.bfloat16)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (ENCDEC_BATCH, LM_PROMPT + 1)).astype(np.int32),
+        device=dev)
+    max_seq = LM_PROMPT + LM_NEW
+    out_toks, step_ms = [], []
+
+    def kind(q, k, kw):
+        if kw.get("causal", True):
+            return "decoder"
+        if k.shape[1] != ENCDEC_FRAMES:
+            return None
+        if q.shape[1] == ENCDEC_FRAMES:
+            return "encoder"
+        return {LM_PROMPT: "cross prefill", 1: "cross decode"}.get(
+            q.shape[1])
+
+    with torch.inference_mode():          # warm: the first call's shapes
+        _, cache = lm.prefill(cfg, params, toks[:, :LM_PROMPT],
+                              enc_embeds=enc, max_seq=max_seq)
+        lm.decode_step(cfg, params, cache, toks[:, LM_PROMPT:],
+                       torch.full((ENCDEC_BATCH,), LM_PROMPT,
+                                  dtype=torch.int32, device=dev))
+        del cache
+    with record_attention(L, kind) as (eseen, counts), \
+            torch.inference_mode():
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, params, toks[:, :LM_PROMPT],
+                                   enc_embeds=enc, max_seq=max_seq)
+        nxt = logits.argmax(-1).to(torch.int32)
+        out_toks.append(nxt.cpu())
+        e_prefill_ms = (time.perf_counter() - t0) * 1e3
+        n_prefill = launch_counts()["flash_attention"]
+        pos = torch.full((ENCDEC_BATCH,), LM_PROMPT, dtype=torch.int32,
+                         device=dev)
+        t1 = time.perf_counter()
+        for _ in range(LM_NEW - 1):
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(cfg, params, cache, nxt[:, None],
+                                           pos)
+            nxt = logits.argmax(-1).to(torch.int32)
+            out_toks.append(nxt.cpu())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            pos += 1
+        e_seconds = e_prefill_ms / 1e3 + time.perf_counter() - t1
+        n_steps = launch_counts()["flash_attention"] - n_prefill
+    n_etok = ENCDEC_BATCH * LM_NEW
+    require(n_prefill == cfg.n_enc_layers + 2 * cfg.n_layers
+            and n_steps == (LM_NEW - 1) * cfg.n_layers,
+            f"{ENCDEC_ARCH}: flash_attention launched {n_prefill} times in "
+            f"prefill and {n_steps} in {LM_NEW - 1} decode steps")
+    require(counts == {"encoder": cfg.n_enc_layers,
+                       "decoder": cfg.n_layers,
+                       "cross prefill": cfg.n_layers,
+                       "cross decode": (LM_NEW - 1) * cfg.n_layers},
+            f"{ENCDEC_ARCH}: attention calls by kind {counts}")
+    require(cache["enc_out"].shape == (ENCDEC_BATCH, ENCDEC_FRAMES,
+                                       cfg.d_model)
+            and all(bool((t_ >= 0).all() and (t_ < cfg.padded_vocab).all())
+                    for t_ in out_toks),
+            f"{ENCDEC_ARCH}: enc_out {tuple(cache['enc_out'].shape)}")
+    edvf = decode_vs_forward(torch, lm, cfg, params, toks, LM_PROMPT,
+                             max_seq, ENCDEC_ARCH, enc_embeds=enc)
+    ewall, ebusy, eidle, ekern, esync = decode_profile(
+        torch, lm, cfg, params, cache, nxt[:, None], pos)
+    estep_bytes = decode_bytes(cfg, params, cache, ENCDEC_BATCH)
+
+    # rows 7e-7g: the encoder, cross-attention in prefill and in decode
+    shapes = {"encoder": (ENCDEC_FRAMES, ENCDEC_FRAMES),
+              "cross prefill": (LM_PROMPT, ENCDEC_FRAMES),
+              "cross decode": (1, ENCDEC_FRAMES)}
+    texts = []
+    for kind_, (sq, sk) in shapes.items():
+        q, k, v, kw = eseen[kind_]
+        require(q.shape == (ENCDEC_BATCH, sq, 16, 64)
+                and k.shape == (ENCDEC_BATCH, sk, 16, 64)
+                and kw.get("causal") is False and not kw.get("window")
+                and q.dtype == torch.bfloat16,
+                f"{ENCDEC_ARCH} {kind_}: recorded attention inputs "
+                f"{tuple(q.shape)} {tuple(k.shape)} {q.dtype} {kw}")
+        name = f"flash_attention seamless-m4t-large-v2 {kind_}"
+        check_attention(errs, name, q, k, v, kw, f"{kind_} layer 0")
+        row, dev_us, sdpa_us, n_bytes, flops = flash_row(
+            torch, name, q, k, v, kw, counts[kind_], errs[name])
+        rows.append(row)
+        texts.append(
+            f"{kind_} (B {ENCDEC_BATCH}, Sq {sq}, Sk {sk}, H 16, dh 64, not "
+            f"causal; {counts[kind_]} launches): {row['ms']:.5f} ms, device "
+            f"{us_text(dev_us)} a launch; plain {row['plain_ms']:.5f} ms; "
+            f"SDPA {row['library_ms']:.5f} ms (device {us_text(sdpa_us)} a "
+            f"call); bound {row['bound_ms']:.7f} ms by {row['bound_by']} "
+            f"({n_bytes} bytes, {flops} operations); max abs err "
+            f"{row['max_abs_err']:.4g}")
+    print(f"[lm2] {ENCDEC_ARCH}: {cfg.n_enc_layers} + {cfg.n_layers} layers "
+          f"at full width (d {cfg.d_model}, H {cfg.n_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}), nothing cut; "
+          f"{cfg.param_count() / 1e9:.2f} B parameters; a batch of "
+          f"{ENCDEC_BATCH}, {ENCDEC_FRAMES} frames, prompts of {LM_PROMPT} "
+          f"tokens, {LM_NEW} new: {n_etok} tokens in {e_seconds:.3f}s "
+          f"({n_etok / e_seconds:.1f} tok/s); prefill {e_prefill_ms:.3f} ms "
+          f"({n_prefill} flash launches), decode median "
+          f"{statistics.median(step_ms):.3f} ms a step ({cfg.n_layers} flash "
+          f"launches a step); decode step profiled {ewall:.1f} us, device "
+          f"busy {ebusy:.1f} us, idle share {eidle:.4f}, {ekern:.0f} kernel "
+          f"launches and {esync} synchronizations a step; bound "
+          f"{estep_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({estep_bytes} bytes "
+          f"over 3.35 TB/s: the decoder's and the head's bf16 weights and the "
+          f"caches, enc_out among them); decode against forward max abs err "
+          f"{edvf:.5f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes on {card}")
+    for text in texts:
+        print(f"[lm2] flash_attention at {ENCDEC_ARCH}'s {text} on {card}")
+    del params, cache, enc, toks, eseen, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm2] seamless {time.perf_counter() - t_enc:.1f}s; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2895,7 +3210,8 @@ def main() -> int:
     rows += phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s)
     phase_latency(torch, card)
     rows.append(phase_lm(torch, card, errs))
-    require(len(rows) == len(KERNELS) + 1, f"{len(rows)} kernel rows")
+    rows += phase_lm_moe_encdec(torch, card, errs)
+    require(len(rows) == len(KERNELS) + 5, f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
       --arch glm4-9b --smoke --device cpu --requests 4 --max-new 8
+  # an MoE model: mixtral's smoke config on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+      --arch mixtral-8x22b --smoke --device cpu --requests 4 --max-new 8
 
 ``--mode lm`` serves ``--arch`` (``--smoke``: its smoke config) from
 weights seeded with ``--seed`` through ``LMEngine`` (4 slots,
@@ -43,7 +46,9 @@ weights seeded with ``--seed`` through ``LMEngine`` (4 slots,
 ``default_rng(0)``, ``--max-new`` tokens each, greedy. It prints the
 tokens served, tok/s beside the device (the card's name and power
 limit), and the flash_attention launches (one a layer for each
-request's prefill, on the card).
+request's prefill, on the card). An encoder-decoder ``--arch`` fails at
+the first admission, as the reference's does: the engine has no
+``enc_embeds`` to give its prefill.
 
 In ``--mode logic``, as the reference launcher does, the model is first
 trained with QAT +

@@ -1,6 +1,7 @@
 """Shared neural layers of the LM stack: norms, RoPE, attention (full /
 chunked / decode, and the prefill entry point ``attention``), QAT+FCP-aware
-linears, the dense MLP and the initialisers.
+linears, the dense MLP, the mixture-of-experts layer and the
+initialisers.
 
 Functional style, as in the reference: parameters are read by key from a
 ``repro_torch.models.lm.Params`` (or any mapping), and every function
@@ -17,8 +18,6 @@ scalar at higher precision where JAX rounds it to the operand's type,
 and the activations are written out operation by operation (``silu``,
 ``gelu_tanh``), since XLA on the CPU rounds after each one where torch's
 fused versions round once.
-
-The mixture-of-experts layer waits for ``dist/`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -333,6 +332,102 @@ def mlp(x: Tensor, p, cfg: ArchConfig) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# MoE (sort-based routing, per-sequence capacity)
+# ---------------------------------------------------------------------------
+
+def top_k(x: Tensor, k: int):
+    """``lax.top_k`` over the last axis: the k largest values and their
+    indices, the lower index first among equal values (a stable sort;
+    ``torch.topk`` promises no order on ties)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _routing_indices(top_e: Tensor, cap: int, e: int):
+    """Capacity routing of each batch row, vectorised over the rows.
+
+    top_e: (B, S, k) experts. Flattened token-major to A = S*k
+    assignments and stably sorted by expert (``order``), an assignment
+    takes the next slot of its expert, ``pos``; the first ``cap`` are
+    kept, the rest go to the overflow slot E*cap. Returns order, slot
+    and keep, each (B, A) in sorted order."""
+    b, a = top_e.shape[0], top_e.shape[1] * top_e.shape[2]
+    eflat = top_e.reshape(b, a)
+    order = torch.argsort(eflat, dim=1, stable=True)
+    es = eflat.gather(1, order)
+    dev = eflat.device
+    counts = (eflat[..., None] == torch.arange(e, device=dev)).sum(1)
+    starts = counts.cumsum(1) - counts
+    pos = torch.arange(a, device=dev) - starts.gather(1, es)
+    keep = pos < cap
+    slot = torch.where(keep, es * cap + pos, e * cap)
+    return order, slot, keep
+
+
+def moe(x: Tensor, p, cfg: ArchConfig) -> Tensor:
+    """Top-k mixture of experts with per-sequence capacity, x (B, S, D).
+
+    The reference's single-device path (``route_one`` under ``vmap``),
+    vectorised over the batch rows as its ``_moe_shard_map`` block is:
+    a float32 router, softmax, top-k renormalised, capacity
+    cap = max(k, ceil(S k cf / E)) per expert and row; one (B, E, cap,
+    D) token buffer and one batched product per expert matrix, so each
+    expert's weights are read once for the whole batch. Every expert's
+    buffer is computed, full or not, as in the reference. Dropped
+    assignments contribute zero. Each token's k weighted outputs are
+    summed in ascending expert order, one rounding to x's type per
+    addition: the order of the reference's scatter-add, which sorts the
+    assignments by expert (``index_add_`` on the card would add in any
+    order). Nothing here synchronizes the host. The mesh branch
+    (``_moe_shard_map``) comes with ``dist/`` (ROADMAP Queue 1)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    cap = max(k, int(math.ceil(s * k * cfg.capacity_factor / e)))
+    dt = x.dtype
+
+    probs = _softmax(x.float() @ p["router"].float())           # (B, S, E)
+    top_p, top_e = top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    # each token's choices in ascending expert order: the same slots
+    # (an expert's assignments keep their token order) and the
+    # reference's order of summation
+    top_e, perm = torch.sort(top_e, dim=-1)
+    top_p = top_p.gather(-1, perm)
+
+    order, slot, keep = _routing_indices(top_e, cap, e)
+    # back from sorted order to the (token, choice) layout
+    slot = torch.empty_like(slot).scatter_(1, order, slot)
+    keep = torch.empty_like(keep).scatter_(1, order, keep)
+    a = s * k
+    vals = torch.where(keep[..., None],
+                       x[:, :, None].expand(b, s, k, d).reshape(b, a, d),
+                       torch.zeros((), dtype=dt, device=x.device))
+    xe = x.new_zeros((b, e * cap + 1, d))
+    xe.scatter_(1, slot[..., None].expand(b, a, d), vals)       # (B, A) rows
+    xe = xe[:, :-1].reshape(b, e, cap, d)
+
+    w1 = p["w1"].to(dt)
+    g = einsum("becd,edf->becf", xe, w1)
+    if cfg.act == "swiglu":
+        h = silu(g) * einsum("becd,edf->becf", xe, p["w3"].to(dt))
+    elif cfg.act == "relu2":
+        h = torch.square(torch.relu(g))
+    else:
+        h = gelu_tanh(g)
+    ye = einsum("becf,efd->becd", h, p["w2"].to(dt)).reshape(b, e * cap, d)
+
+    ya = ye.gather(1, torch.clamp(slot, max=e * cap - 1)[..., None]
+                   .expand(b, a, d))
+    ya = torch.where(keep[..., None], ya,
+                     torch.zeros((), dtype=dt, device=x.device))
+    ya = (ya * top_p.reshape(b, a, 1).to(dt)).reshape(b, s, k, d)
+    out = ya[:, :, 0]
+    for j in range(1, k):
+        out = out + ya[:, :, j]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Initialisers (seeded from an explicit torch.Generator, on its device)
 # ---------------------------------------------------------------------------
 
@@ -364,4 +459,14 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Tensor]:
     if cfg.fcp_fanin > 0:
         p["mask_w1"] = torch.ones((d, f), dtype=torch.float32, device=dev)
         p["mask_w2"] = torch.ones((f, d), dtype=torch.float32, device=dev)
+    return p
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Tensor]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": ninit(gen, (d, e)),
+         "w1": ninit(gen, (e, d, f), 1.0 / math.sqrt(d)),
+         "w2": ninit(gen, (e, f, d), 1.0 / math.sqrt(f))}
+    if cfg.act == "swiglu":
+        p["w3"] = ninit(gen, (e, d, f), 1.0 / math.sqrt(d))
     return p

@@ -1,10 +1,11 @@
-"""The LM of the port: dense / GQA / SWA / SSM / hybrid decoders.
+"""The LM of the port: dense / GQA / SWA / MoE / SSM / hybrid /
+encoder-decoder.
 
 One parameter schema and four entry points, as in the reference:
 
   init_params(cfg, generator)             -> Params (an nn.Module)
-  forward(cfg, params, tokens)            -> hidden states (prefill form)
-  prefill(cfg, params, tokens, max_seq)   -> last-token logits + cache
+  forward(cfg, params, tokens, ...)       -> hidden states (prefill form)
+  prefill(cfg, params, tokens, ...)       -> last-token logits + cache
   decode_step(cfg, params, cache, ...)    -> next-token logits + cache
 
 The reference stacks the layers on a leading L axis and runs them with
@@ -12,9 +13,9 @@ The reference stacks the layers on a leading L axis and runs them with
 loop runs it. The reference's sharding constraints are no-ops without a
 mesh and are left out: ``dist/`` brings placement back (ROADMAP Queue 1).
 ``decode_step`` writes the cache in place (the reference returns a new
-one). The ``moe`` family and the encoder-decoder family raise
-``NotImplementedError`` (ROADMAP Queue 1); the training loss waits for
-the training slice.
+one). The encoder-decoder family takes the encoder's input as
+``enc_embeds`` (B, F, D), stubbed frame embeddings, as the reference
+does. The training loss waits for the training slice.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 
 Tensor = torch.Tensor
-FAMILIES = ("dense", "ssm", "hybrid")
-# the weight matrices cast once to the compute type (``cast_weights_``)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# the weight matrices cast once to the compute type (``cast_weights_``);
+# the MoE router stays float32, the type the reference computes it in
 MATRICES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w2", "w3"),
-            "mamba": ("in_proj", "x_proj", "dt_proj_w", "out_proj")}
+            "mamba": ("in_proj", "x_proj", "dt_proj_w", "out_proj"),
+            "moe": ("w1", "w2", "w3"), "cross": ("wq", "wk", "wv", "wo")}
 
 
 class Params(nn.Module):
@@ -74,14 +77,6 @@ class Params(nn.Module):
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family is not ported yet (ROADMAP Queue 1:"
-            " MoE with dist/)")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            "(ROADMAP Queue 1)")
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
@@ -105,9 +100,23 @@ def _init_dec_layer(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
         p["mamba"] = M.init_mamba(gen, cfg)
         p["ln_attn_out"] = ones()
         p["ln_mamba_out"] = ones()
+    if cfg.is_encdec:
+        p["ln_cross"] = ones()
+        p["cross"] = L.init_attn(gen, cfg)
     p["ln2"] = ones()
-    p["mlp"] = L.init_mlp(gen, cfg)
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
     return p
+
+
+def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": torch.ones((d,), dtype=torch.float32, device=dev),
+            "attn": L.init_attn(gen, cfg),
+            "ln2": torch.ones((d,), dtype=torch.float32, device=dev),
+            "mlp": L.init_mlp(gen, cfg)}
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> Params:
@@ -120,6 +129,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Params:
         "layers": [_init_dec_layer(generator, cfg)
                    for _ in range(cfg.n_layers)],
     }
+    if cfg.is_encdec:
+        tree["enc_layers"] = [_init_enc_layer(generator, cfg)
+                              for _ in range(cfg.n_enc_layers)]
+        tree["enc_norm"] = torch.ones((d,), dtype=torch.float32, device=dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = L.ninit(generator, (d, vp), 1.0 / math.sqrt(d))
     return Params(tree)
@@ -132,8 +145,9 @@ def cast_weights_(cfg: ArchConfig, params: Params) -> Params:
     leaf is freed before the next is cast. The values are those the
     reference computes at each use; an MLP with ``quant_weights`` or FCP
     masks gets DoReFa and the mask first and is marked ``prepared``.
-    Norm scales, ``D``, ``A_log``, ``conv_*`` and ``dt_proj_b`` stay as
-    they are. Idempotent."""
+    Norm scales, the MoE router, ``D``, ``A_log``, ``conv_*`` and
+    ``dt_proj_b`` stay as they are. Decoder and encoder layers alike.
+    Idempotent."""
     dt = L.cdtype(cfg)
 
     def cast(mod: Params, name: str, value: Tensor) -> None:
@@ -143,7 +157,7 @@ def cast_weights_(cfg: ArchConfig, params: Params) -> Params:
     for name in ("embed", "lm_head"):
         if name in params:
             cast(params, name, params[name])
-    for lp in params.layers:
+    for lp in [*params.layers, *params.get("enc_layers", ())]:
         for sub, names in MATRICES.items():
             if sub not in lp:
                 continue
@@ -165,24 +179,28 @@ def cast_weights_(cfg: ArchConfig, params: Params) -> Params:
 # ---------------------------------------------------------------------------
 
 def _attention_mixer(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
+                     kv_src: Optional[Tensor] = None, causal: bool = True,
                      window: int = 0):
-    """Causal self-attention over x (B, S, D) -> (y, (k, v)); the
-    attention itself is ``layers.attention`` (the flash kernel on the
-    card)."""
+    """Attention of x (B, S, D) over itself (RoPE on q and k) or, for
+    cross-attention, over ``kv_src`` (B, F, D) (no RoPE) -> (y, (k, v));
+    the attention itself is ``layers.attention`` (the flash kernel on
+    the card)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src
     q = L.matmul(x, p["wq"]).reshape(b, s, h, dh)
-    k = L.matmul(x, p["wk"]).reshape(b, s, kv, dh)
-    v = L.matmul(x, p["wv"]).reshape(b, s, kv, dh)
-    q = L.apply_rope(q, positions, cfg)
-    k = L.apply_rope(k, positions, cfg)
-    out = L.attention(q, k, v, causal=True, window=window)
+    k = L.matmul(src, p["wk"]).reshape(b, src.shape[1], kv, dh)
+    v = L.matmul(src, p["wv"]).reshape(b, src.shape[1], kv, dh)
+    if kv_src is None:
+        q = L.apply_rope(q, positions, cfg)
+        k = L.apply_rope(k, positions, cfg)
+    out = L.attention(q, k, v, causal=causal, window=window)
     y = L.matmul(out.reshape(b, s, h * dh), p["wo"])
     return y, (k, v)
 
 
 def _dec_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
-               collect_kv: bool):
+               enc_out: Optional[Tensor], collect_kv: bool):
     """One decoder block. Returns (x, aux): aux carries the layer's K, V
     and SSM states for the prefill cache when ``collect_kv``."""
     eps = cfg.norm_eps
@@ -207,32 +225,73 @@ def _dec_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
         x = x + a_out
     if collect_kv:
         aux["k"], aux["v"] = k, v
-    h2 = L.rms_norm(x, p["ln2"], eps)
-    return x + L.mlp(h2, p["mlp"], cfg), aux
+    if cfg.is_encdec:
+        hc = L.rms_norm(x, p["ln_cross"], eps)
+        x = x + _attention_mixer(cfg, p["cross"], hc, positions,
+                                 kv_src=enc_out, causal=False)[0]
+    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], eps)), aux
+
+
+def _ffn(cfg: ArchConfig, p, x: Tensor) -> Tensor:
+    """The block's MoE or dense MLP."""
+    if cfg.family == "moe":
+        return L.moe(x, p["moe"], cfg)
+    return L.mlp(x, p["mlp"], cfg)
+
+
+def _enc_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor) -> Tensor:
+    eps = cfg.norm_eps
+    hin = L.rms_norm(x, p["ln1"], eps)
+    x = x + _attention_mixer(cfg, p["attn"], hin, positions,
+                             causal=False)[0]
+    return x + L.mlp(L.rms_norm(x, p["ln2"], eps), p["mlp"], cfg)
 
 
 # ---------------------------------------------------------------------------
 # Forward (prefill form)
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ArchConfig, params: Params, tokens: Tensor,
-            collect_kv: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """Sequence forward over tokens (B, S). Returns (hidden, stack):
-    hidden (B, S, D) are the pre-head normalised states; ``stack`` holds,
-    when ``collect_kv``, each cache leaf stacked on a leading L axis
-    (k, v: (L, B, S, KV, dh); ssm: (L, B, Di, N); conv: (L, B, CW-1, Di)),
-    else nothing."""
-    _require_supported(cfg)
-    x = params["embed"].to(L.cdtype(cfg))[tokens]
+def encode(cfg: ArchConfig, params: Params, enc_embeds: Tensor) -> Tensor:
+    """Encoder stack over stubbed frame embeddings (B, F, D)."""
+    x = enc_embeds.to(L.cdtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params.enc_layers:
+        x = _enc_block(cfg, lp, x, positions)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
+            frames: Optional[Tensor] = None,
+            enc_embeds: Optional[Tensor] = None, collect_kv: bool = False
+            ) -> Tuple[Tensor, Optional[Tensor], Dict[str, Tensor]]:
+    """Sequence forward over tokens (B, S), or over ``frames`` (B, S, D)
+    taken as the decoder's input embeddings. Returns (hidden, enc_out,
+    stack): hidden (B, S, D) are the pre-head normalised states;
+    enc_out the encoder's output over ``enc_embeds`` (encoder-decoder
+    family, which needs them; else None); ``stack`` holds, when
+    ``collect_kv``, each cache leaf stacked on a leading L axis (k, v:
+    (L, B, S, KV, dh); ssm: (L, B, Di, N); conv: (L, B, CW-1, Di)), else
+    nothing."""
+    _require_supported(cfg)
+    dt = L.cdtype(cfg)
+    x = (frames.to(dt) if frames is not None
+         else params["embed"].to(dt)[tokens])
+    positions = torch.arange(x.shape[1], device=x.device)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(
+                f"{cfg.name}: the encoder-decoder family needs enc_embeds, "
+                "the encoder's frame embeddings (B, F, D)")
+        enc_out = encode(cfg, params, enc_embeds)
     auxes = []
     for lp in params.layers:
-        x, aux = _dec_block(cfg, lp, x, positions, collect_kv)
+        x, aux = _dec_block(cfg, lp, x, positions, enc_out, collect_kv)
         auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     stack = ({key: torch.stack([a[key] for a in auxes]) for key in auxes[0]}
              if collect_kv else {})
-    return x, stack
+    return x, enc_out, stack
 
 
 def logits_head(cfg: ArchConfig, params: Params, hidden: Tensor) -> Tensor:
@@ -252,7 +311,7 @@ def cache_len(cfg: ArchConfig, max_seq: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               device=None) -> Dict[str, Tensor]:
+               enc_frames: int = 0, device=None) -> Dict[str, Tensor]:
     _require_supported(cfg)
     dt = L.cdtype(cfg)
     ln = cfg.n_layers
@@ -271,6 +330,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                                    device=device)
         cache["conv"] = torch.zeros((ln, batch, cw - 1, di), dtype=dt,
                                     device=device)
+    if cfg.is_encdec:
+        cache["enc_out"] = torch.zeros((batch, enc_frames, cfg.d_model),
+                                       dtype=dt, device=device)
     return cache
 
 
@@ -309,7 +371,9 @@ def _mamba_step_into(cfg: ArchConfig, p, x: Tensor, cache, layer: int
 def _dec_block_step(cfg: ArchConfig, p, x: Tensor, cache, layer: int,
                     positions: Tensor, slot: Optional[Tensor],
                     cpos: Optional[Tensor]) -> Tensor:
-    """Single-token decoder block. x: (B, D)."""
+    """Single-token decoder block. x: (B, D). Cross-attention reads the
+    cache's ``enc_out`` and recomputes its K, V each step, as the
+    reference does."""
     eps = cfg.norm_eps
     hin = L.rms_norm(x, p["ln1"], eps)
     if cfg.family == "ssm":
@@ -322,8 +386,12 @@ def _dec_block_step(cfg: ArchConfig, p, x: Tensor, cache, layer: int,
                        + L.rms_norm(m_out, p["ln_mamba_out"], eps))
     else:
         x = x + a_out
-    h2 = L.rms_norm(x, p["ln2"], eps)
-    return x + L.mlp(h2, p["mlp"], cfg)
+    if cfg.is_encdec:
+        hc = L.rms_norm(x, p["ln_cross"], eps)
+        y, _ = _attention_mixer(cfg, p["cross"], hc[:, None], positions,
+                                kv_src=cache["enc_out"], causal=False)
+        x = x + y[:, 0]
+    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], eps)[:, None])[:, 0]
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Tensor],
@@ -349,15 +417,19 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Tensor],
 # Prefill
 # ---------------------------------------------------------------------------
 
-def prefill(cfg: ArchConfig, params: Params, tokens: Tensor,
+def prefill(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
+            frames: Optional[Tensor] = None,
+            enc_embeds: Optional[Tensor] = None,
             max_seq: Optional[int] = None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Run the full prompt; return (last-token logits, decode cache).
 
     ``max_seq`` sizes the returned cache (>= prompt length + planned new
     tokens); defaults to the prompt length. Absolute position p lives in
-    ring slot p % w; empty slots carry position -1."""
-    hidden, stack = forward(cfg, params, tokens, collect_kv=True)
+    ring slot p % w; empty slots carry position -1. The encoder-decoder
+    family keeps the encoder's output as the cache's ``enc_out``."""
+    hidden, enc_out, stack = forward(cfg, params, tokens, frames, enc_embeds,
+                                     collect_kv=True)
     b, s, _ = hidden.shape
     w = cache_len(cfg, max_seq or s)
     cache: Dict[str, Tensor] = {}
@@ -376,4 +448,6 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Tensor,
     if cfg.family in ("ssm", "hybrid"):
         cache["ssm"] = stack["ssm"]                # (L, B, Di, N)
         cache["conv"] = stack["conv"]              # (L, B, CW-1, Di)
+    if cfg.is_encdec:
+        cache["enc_out"] = enc_out                 # (B, F, D)
     return logits_head(cfg, params, hidden[:, -1]), cache

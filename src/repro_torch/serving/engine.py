@@ -247,7 +247,7 @@ class LMRequest:
     out_tokens: Optional[List[int]] = None
 
 
-_LM_CACHE_LEAVES = ("k", "v", "positions", "ssm", "conv")
+_LM_CACHE_LEAVES = ("k", "v", "positions", "ssm", "conv", "enc_out")
 
 
 class LMEngine:
@@ -257,7 +257,10 @@ class LMEngine:
     every slot each tick (inactive slots carry their last token, their
     outputs are discarded): the decode batch is static and occupancy
     varies. Each admission runs ``prefill`` on its prompt alone and
-    splices its cache into the admitted slot of the pool, in place.
+    splices its cache into the admitted slot of the pool, in place. As
+    in the reference, admission passes no ``enc_embeds``, so an
+    encoder-decoder model fails there (``ValueError``); its served path
+    is ``lm.prefill(..., enc_embeds=)`` and ``lm.decode_step``.
     Greedy decoding; the argmax runs over the padded vocabulary, as in
     the reference.
 
@@ -336,8 +339,10 @@ class LMEngine:
                 w = min(s.shape[1], pool.shape[1])
                 pool[slot].fill_(-1)
                 pool[slot, :w] = s[0, :w]
-            else:                             # ssm, conv: (L, B, ...)
+            elif key in ("ssm", "conv"):      # (L, B, ...)
                 pool[:, slot] = s[:, 0]
+            else:                             # enc_out (B, F, D)
+                pool[slot] = s[0]
 
     def _admit(self, req: LMRequest, slot: int):
         from repro_torch.models import lm

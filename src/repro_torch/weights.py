@@ -109,10 +109,12 @@ def lm_params_from_jax(cfg: ArchConfig, params: dict):
     """The reference's LM parameters (``repro.models.lm.init_params``'s
     pytree as numpy arrays, or anything ``np.asarray`` accepts) as the
     port's ``Params`` on the CPU: ``embed``, ``final_norm``, ``lm_head``,
-    and under ``layers`` the leaves ``ln1``, ``ln2``, ``attn.*``,
-    ``mlp.*``, ``mamba.*``, ``ln_attn_out``, ``ln_mamba_out`` stacked on a
-    leading L axis, which becomes ``Params.layers``. Values are copied
-    as float32."""
+    ``enc_norm``, and the leaves under ``layers`` (``ln1``, ``ln2``,
+    ``attn.*``, ``mlp.*``, ``moe.*``, ``mamba.*``, ``ln_attn_out``,
+    ``ln_mamba_out``, ``ln_cross``, ``cross.*``) and ``enc_layers``,
+    stacked on a leading axis ``n_layers`` and ``n_enc_layers`` deep,
+    which become ``Params.layers`` and ``Params.enc_layers``. Values are
+    copied as float32."""
     from repro_torch.models.lm import Params, _require_supported
     _require_supported(cfg)
 
@@ -123,12 +125,16 @@ def lm_params_from_jax(cfg: ArchConfig, params: dict):
         return {k: layer(v, i) if isinstance(v, dict)
                 else leaf(np.asarray(v)[i]) for k, v in tree.items()}
 
-    n = {np.asarray(v).shape[0] for v in _leaves(params["layers"])}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"layers stacked {sorted(n)} deep, expected "
-                         f"{cfg.n_layers}")
-    tree = {k: leaf(v) for k, v in params.items() if k != "layers"}
-    tree["layers"] = [layer(params["layers"], i) for i in range(cfg.n_layers)]
+    stacks = {"layers": cfg.n_layers}
+    if cfg.is_encdec:
+        stacks["enc_layers"] = cfg.n_enc_layers
+    tree = {k: leaf(v) for k, v in params.items() if k not in stacks}
+    for key, depth in stacks.items():
+        n = {np.asarray(v).shape[0] for v in _leaves(params[key])}
+        if n != {depth}:
+            raise ValueError(f"{key} stacked {sorted(n)} deep, expected "
+                             f"{depth}")
+        tree[key] = [layer(params[key], i) for i in range(depth)]
     return Params(tree)
 
 

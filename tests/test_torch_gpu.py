@@ -887,7 +887,8 @@ def test_lm_attention_refuses_dh_over_128_on_the_card(cuda_device):
     assert flash_attention.launches == launches
 
 
-def test_lm_engine_on_card_matches_single_request(cuda_device):
+@pytest.mark.parametrize("name", ["glm4-9b", "mixtral-8x22b"])
+def test_lm_engine_on_card_matches_single_request(cuda_device, name):
     """``LMEngine`` on the card gives a single-request greedy loop's
     tokens; where a batch of slots and a batch of one part, the loop's
     logit for the engine's token lies within four bf16 steps of its top
@@ -897,7 +898,7 @@ def test_lm_engine_on_card_matches_single_request(cuda_device):
     from repro_torch.configs import SMOKES
     from repro_torch.models import lm
     from repro_torch.serving.engine import LMEngine, LMRequest
-    cfg = SMOKES["glm4-9b"]
+    cfg = SMOKES[name]
     params = lm.init_params(cfg, torch.Generator(device=cuda_device)
                             .manual_seed(0))
     rng = np.random.default_rng(0)
@@ -929,6 +930,75 @@ def test_lm_engine_on_card_matches_single_request(cuda_device):
                     torch.tensor([pos], dtype=torch.int32,
                                  device=cuda_device))
                 pos += 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_moe_on_card_matches_cpu(cuda_device, dtype):
+    """The MoE layer on the card against the CPU on the same weights and
+    tokens, with drops (capacity factor 0.5) and k = 4: float32 within
+    1e-5 x max(1, |cpu|), bf16 within four bf16 steps of the output's
+    scale (the card's products round in another order); routing never
+    synchronizes the host (sync debug mode raises on one)."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    for kw in ({"capacity_factor": 0.5}, {"n_experts": 8, "moe_top_k": 4}):
+        cfg = dataclasses.replace(SMOKES["dbrx-132b"], **kw)
+        p = lm.Params(L.init_moe(torch.Generator().manual_seed(0), cfg))
+        x = torch.randn((3, 24, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1)).to(dtype)
+        want = L.moe(x, p, cfg).float()
+        pc, xc = p.to(cuda_device), x.to(cuda_device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = L.moe(xc, pc, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = got.float().cpu()
+        if dtype == torch.float32:
+            assert ((got - want).abs() / want.abs().clamp(min=1)).max() \
+                <= 1e-5
+        else:
+            assert (got - want).abs().max() <= \
+                4 * 2.0 ** -7 * want.abs().max()
+
+
+def test_lm_encdec_on_card_runs_the_flash_kernel(cuda_device):
+    """The seamless smoke on the card: prefill over frame embeddings
+    launches the flash kernel for the encoder, the decoder and the
+    cross-attention of every layer, and a decode step once a layer for
+    its cross-attention (Sq 1 over the frames); the logits agree with
+    the CPU's within four bf16 steps of their scale."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    cfg = SMOKES["seamless-m4t-large-v2"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 25)).astype(np.int32))
+    enc = (torch.randn((2, 12, cfg.d_model),
+                       generator=torch.Generator().manual_seed(3))
+           * 0.1).bfloat16()
+    pos = torch.full((2,), 24, dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        p = params.to(dev) if dev != "cpu" else params
+        with torch.inference_mode():
+            launches = flash_attention.launches
+            logits, cache = lm.prefill(cfg, p, toks[:, :24].to(dev),
+                                       enc_embeds=enc.to(dev), max_seq=32)
+            n_prefill = flash_attention.launches - launches
+            step, _ = lm.decode_step(cfg, p, cache, toks[:, 24:].to(dev),
+                                     pos.to(dev))
+            n_step = flash_attention.launches - launches - n_prefill
+        outs.append((logits.float().cpu(), step.float().cpu(), n_prefill,
+                     n_step))
+    (cl, cs, _, _), (gl, gs, n_prefill, n_step) = outs
+    assert n_prefill == cfg.n_enc_layers + 2 * cfg.n_layers
+    assert n_step == cfg.n_layers
+    for got, want in ((gl, cl), (gs, cs)):
+        assert (got - want).abs().max() <= 4 * 2.0 ** -7 * want.abs().max()
 
 
 def test_entry_points_without_a_card_raise():

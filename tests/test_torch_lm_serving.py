@@ -1,10 +1,10 @@
 """The port's ``LMEngine`` and ``--mode lm`` against the reference's
 engine on the same weights (carried across with
 ``weights.lm_params_from_jax``) and the same prompts: greedy tokens
-identical at float32 and at the configs' bfloat16, for the dense, ssm
-and hybrid families; admission (priority lanes, deadline shedding,
-backpressure) the same; and the launcher, the example and the
-unported families on the CPU.
+identical at float32 and at the configs' bfloat16, for the dense, moe,
+ssm and hybrid families; admission (priority lanes, deadline shedding,
+backpressure) the same; the encoder-decoder family failing in both
+engines; and the launcher and the example on the CPU.
 
 The reference engine's jitted functions are compiled to round where the
 program rounds (``xla_allow_excess_precision`` off, as in
@@ -80,7 +80,7 @@ def prompts(cfg, n, seed=0, lengths=(16,)):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["glm4-9b", "falcon-mamba-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "mixtral-8x22b"])
 def test_engine_tokens_match_reference_engine(name, dtype):
     """5 requests through 2 slots (slot reuse, one admission mid-run),
     prompts of 12 and 20 tokens (hymba's past its 64-token window by the
@@ -216,16 +216,29 @@ def test_short_prompt_conv_state_in_the_engine_follows_reference():
             [LMRequest(prompt=np.array([5, 6], np.int32))])
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "seamless-m4t-large-v2"])
-def test_engine_refuses_unported_families(name):
-    dense = lm.init_params(SMOKES["glm4-9b"], torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        LMEngine(SMOKES[name], dense, device="cpu")
+def test_engine_fails_on_encdec_as_the_reference_does():
+    """Both engines build an encoder-decoder model's pool (its
+    ``enc_out`` leaf 0 frames long), and both fail at the first
+    admission, whose prefill is given no ``enc_embeds``: the reference
+    on an assert, the port with a ``ValueError`` naming them (ROADMAP,
+    Reference caveats)."""
+    rcfg, rp, cfg, p = carried("seamless-m4t-large-v2", "float32")
+    ref = RefEngine(rcfg, rp, n_slots=2, max_seq=32)
+    eng = LMEngine(cfg, p, n_slots=2, max_seq=32, device="cpu")
+    assert sorted(eng.cache) == sorted(ref.cache)
+    assert tuple(eng.cache["enc_out"].shape) == ref.cache["enc_out"].shape \
+        == (2, 0, cfg.d_model)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    with pytest.raises(AssertionError):
+        ref.run([RefRequest(prompt=prompt)])
+    with pytest.raises(ValueError, match="enc_embeds"):
+        eng.run([LMRequest(prompt=prompt)])
 
 
-def test_launcher_mode_lm_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["glm4-9b", "mixtral-8x22b", "dbrx-132b"])
+def test_launcher_mode_lm_on_the_cpu(capsys, arch):
     from repro_torch.launch.serve import main
-    out = main(["--mode", "lm", "--arch", "glm4-9b", "--smoke", "--device",
+    out = main(["--mode", "lm", "--arch", arch, "--smoke", "--device",
                 "cpu", "--requests", "4", "--max-new", "8"])
     assert len(out["done"]) == 4 and out["tokens"] == 32
     assert all(len(r.out_tokens) == 8 and len(r.prompt) == 32
@@ -234,7 +247,7 @@ def test_launcher_mode_lm_on_the_cpu(capsys):
     assert out["device"]["backend"] == "cpu"
     printed = capsys.readouterr().out
     assert "32 tokens" in printed and "tok/s" in printed
-    again = main(["--mode", "lm", "--arch", "glm4-9b", "--smoke", "--device",
+    again = main(["--mode", "lm", "--arch", arch, "--smoke", "--device",
                   "cpu", "--requests", "4", "--max-new", "8"])
     assert ([r.out_tokens for r in again["done"]]
             == [r.out_tokens for r in out["done"]])
