@@ -206,7 +206,28 @@ Phases, each printing its own lines:
                 its plain versions at each new shape (mixtral's
                 windowed GQA prefill, seamless's encoder, cross-attention
                 in prefill and in decode), timed beside SDPA (rows
-                7d-7g of the kernels line).
+                7d-7g of the kernels line);
+  15. lm_train — LM training: glm4-9b at full width cut to 4 of its
+                40 layers (2.06 G parameters, float32 parameters,
+                gradients and AdamW moments 32.9 GB), six AdamW steps
+                through ``Trainer`` at B 4 x S 1,024 from every launch
+                count at 0: finite losses, the flash forward launched 8
+                times a step (each block recomputed in the backward) and
+                the flash backward 4, ms a step, tokens/s, peak memory,
+                the profiled idle share and launches a step beside the
+                step's bound; the moe, ssm, hybrid, encoder-decoder and
+                QAT-example smoke configs at float32, step 1's loss and
+                every gradient leaf on the card within TRAIN_CARD_TOL of
+                the CPU's, then three steps each (top-k, sign and
+                grad_accum 2 once each); a smoke-width checkpoint at step
+                3 resumed by a new Trainer bit for bit, and a step that
+                raises leaving an emergency checkpoint; the flash
+                backward within 2e-4 (float32) / 2e-2 (bf16) x max(1,
+                max |plain|) of autograd through ``attention_ref`` at
+                every shape the phase launched it at and a ragged one,
+                and rows 7h / 7i of the kernels line (the forward with
+                its log-sum-exp and the backward at glm4-9b's training
+                shape, beside SDPA).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -262,6 +283,9 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/"
                         "flash_attention.py:73"),
+    # no TPU kernel: the reference differentiates full_attention in XLA
+    "flash_attention_backward": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/models/layers.py:81"),
 }
 F32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 TF32_OPS_PER_S = 495e12       # H100 SXM dense tensor-core peaks
@@ -2549,7 +2573,8 @@ def record_attention(layers, kind=lambda q, k, kw: "prefill"):
         if label is not None:
             counts[label] = counts.get(label, 0) + 1
             if label not in first:
-                first[label] = (q.clone(), k.clone(), v.clone(), kw)
+                first[label] = (q.detach().clone(), k.detach().clone(),
+                                v.detach().clone(), kw)
         return real(q, k, v, **kw)
 
     @contextlib.contextmanager
@@ -3170,6 +3195,410 @@ def phase_lm_moe_encdec(torch, card, errs):
           f"{time.perf_counter() - t_phase:.1f}s")
     return rows
 
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS = "glm4-9b", 4   # of 40: 2.06 G parameters
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 4, 1024, 6  # two loss chunks a row
+SMOKE_B, SMOKE_S, SMOKE_STEPS = 2, 64, 3
+# smoke configurations at float32 (TF32 off), one step's loss and every
+# gradient leaf on the card against the CPU's within TRAIN_CARD_TOL x
+# max(1, max |cpu|): the products sum in other orders on the two devices
+# (float32 rounding, 1e-7 relative a product) and the flash kernel's
+# three TF32 passes err by about 1e-6
+TRAIN_CARD_TOL = 1e-4
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def attn_key(q, k, kw):
+    """The kernel shape of one attention call on the card: (q shape, k
+    shape, type, causal, window); None for a call on the CPU."""
+    if q.device.type != "cuda":
+        return None
+    return (tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[1],
+            bool(kw.get("causal", True)), int(kw.get("window", 0)))
+
+
+def flash_grads_close(torch, errs, name, q, k, v, kw):
+    """The backward kernel against autograd through ``attention_ref`` (TF32
+    off) on q, k, v and a seeded dout: dq, dk, dv each within the
+    forward's tolerance (2e-4 float32, 2e-2 bf16) x max(1, max |plain|);
+    the forward's output with its log-sum-exp bit for bit the serving
+    launch's. Returns (out, lse, dout, max abs error)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_ref, flash_attention, flash_attention_backward,
+        flash_attention_forward)
+    tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    g = torch.Generator(device=q.device).manual_seed(q.shape[1])
+    dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    with torch.no_grad():
+        out, lse = flash_attention_forward(q, k, v, causal=causal,
+                                           window=window)
+        require(torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                                 window=window)),
+                f"{name}: the forward with its log-sum-exp differs from the "
+                "serving launch")
+        got = flash_attention_backward(q, k, v, out, dout, lse,
+                                       causal=causal, window=window)
+    with tf32(False):
+        want = attention_backward_ref(q, k, v, dout, causal=causal,
+                                      window=window)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{name} {gname}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        err = float((a.float() - b.float()).abs().max())
+        scale = max(1.0, float(b.float().abs().max()))
+        require(math.isfinite(err) and err <= tol * scale,
+                f"{name} {gname}: error {err} exceeds {tol} x {scale}")
+        worst = max(worst, err)
+    errs[name] = max(errs.get(name, 0.0), worst)
+    return out, lse, dout, worst
+
+
+def leaf_errs(torch, got, want):
+    """Per leaf max |got - want| / max(1, max |want|), got on the card."""
+    return [float((a.detach().float().cpu() - b.detach().float()).abs().max())
+            / max(1.0, float(b.detach().float().abs().max()))
+            for a, b in zip(got, want)]
+
+
+def smoke_batch(torch, cfg, dev, seed=0):
+    from repro_torch.data.tokens import lm_batch
+    toks, labels = lm_batch(cfg, SMOKE_B, SMOKE_S, seed, 0)
+    b = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    if cfg.is_encdec:
+        b["enc_embeds"] = torch.randn(
+            (SMOKE_B, SMOKE_S // cfg.frontend_frames_div, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed + 1)) * 0.1
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def phase_lm_train(torch, card, errs):
+    """LM training on the card. (b) glm4-9b at full width, 4 of its 40
+    layers, six AdamW steps through ``Trainer`` from every launch count at
+    0: finite losses, flash forward 2 a layer a step (the block's
+    recomputation included) and backward 1; ms a step, tokens/s, peak
+    memory, the profiled idle share, launches a step, the step's bound.
+    (c) Five smoke configurations (moe, ssm, hybrid, encdec, the QAT
+    example's) at float32: step 1's loss and gradients on the card
+    against the CPU's, then three steps on the card (top-k, sign and
+    grad_accum 2 once each). (d) A smoke-width checkpoint written at step
+    3, resumed bit for bit by a new Trainer, and an emergency checkpoint
+    after a failing batch. (a) The backward kernel against autograd
+    through ``attention_ref`` at every shape the phase launched it at and
+    at a ragged one; rows 7h / 7i of the kernels line at glm4's training
+    shape beside SDPA."""
+    import copy
+    import gc
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.examples.train_lm_qat import qat_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_ref, attention_ref, flash_attention_backward,
+        flash_attention_forward)
+    from repro_torch.launch.train import batches
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import (Trainer, init_state, loss_and_grads,
+                                        make_train_step)
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.schedules import warmup_cosine
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) glm4-9b, 4 of 40 layers at full width, through Trainer
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_LAYERS)
+    opt = AdamW(lr=warmup_cosine(3e-4, 1, LM_TRAIN_STEPS), weight_decay=0.01,
+                grad_clip=1.0)
+    state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in lm.leaves(state.params))
+    stream = batches(cfg, LM_TRAIN_B, LM_TRAIN_S, 0, dev)
+    trainer = Trainer(make_train_step(cfg, opt), state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    key = lambda q, k, kw: attn_key(q, k, kw)  # noqa: E731
+    with record_attention(L, key) as (seen, calls):
+        reset_launch_counts()
+        for _ in range(LM_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            last = trainer.run(stream, 1, log_every=1, log_fn=lambda *_: None)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(last["loss"])
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_fwd = counts["flash_attention"]
+    n_bwd = counts["flash_attention_backward"]
+    require(all(math.isfinite(x) for x in losses),
+            f"lm_train {LM_TRAIN_ARCH}: losses {losses}")
+    require(n_fwd == 2 * LM_TRAIN_LAYERS * LM_TRAIN_STEPS
+            and n_bwd == LM_TRAIN_LAYERS * LM_TRAIN_STEPS,
+            f"lm_train {LM_TRAIN_ARCH}: flash forward {n_fwd}, backward "
+            f"{n_bwd} "
+            f"launches in {LM_TRAIN_STEPS} steps, expected "
+            f"{2 * LM_TRAIN_LAYERS} and {LM_TRAIN_LAYERS} a step")
+    # every layer's wq, wk, wv took a non-zero gradient: its first moment
+    mu = trainer.state.opt.mu
+    attn_mu = [float(mu[i].abs().max()) for i, n in enumerate(
+        lm.leaf_names(trainer.state.params))
+        if n.endswith(("::wq", "::wk", "::wv"))]
+    require(len(attn_mu) == 3 * LM_TRAIN_LAYERS and min(attn_mu) > 0,
+            f"lm_train: wq / wk / wv first moments {attn_mu}")
+    # one profiled step: device busy, idle share, kernel launches a step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(stream, 1, log_every=1, log_fn=lambda *_: None)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+            kernels += e.count
+    idle = 1.0 - busy_us / 1e3 / prof_ms
+    med_ms = statistics.median(step_ms[1:])
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    glm_key = next(iter(seen))
+    gq, gk, gv, gkw = seen[glm_key]
+    b_, sq, h, dh = gq.shape
+    causal, window = gkw.get("causal", True), gkw.get("window", 0)
+    pairs = b_ * h * int(L._mask(sq, gk.shape[1], causal, window, dev).sum())
+    # the step's products: 8 N T (forward, remat forward, backward); the
+    # finer count: the layers' matrices 8 N_layers T, the head's 6 N_head T
+    # (no remat), attention 18 dh a kept pair a layer (4 + 4 forward, 10
+    # backward); the embedding is a gather
+    head = cfg.d_model * cfg.padded_vocab
+    n_layers = n_params - (2 - cfg.tie_embeddings) * head - cfg.d_model
+    flop_issue = 8 * n_params * tokens
+    flop_fine = (8 * n_layers * tokens + 6 * head * tokens
+                 + 18 * dh * pairs * LM_TRAIN_LAYERS)
+    adam_bytes = 28 * n_params
+    print(f"[lm_train] {LM_TRAIN_ARCH} at full width, {LM_TRAIN_LAYERS} of 40 "
+          f"layers ({n_params} parameters), B {LM_TRAIN_B} x S {LM_TRAIN_S}, "
+          f"AdamW warmup-cosine, decay 0.01, clip 1.0: losses "
+          f"{[round(x, 4) for x in losses]}; ms a step "
+          f"{[round(x, 1) for x in step_ms]} "
+          f"(median of steps 2-{LM_TRAIN_STEPS} {med_ms:.3f} ms, "
+          f"{tokens / med_ms * 1e3:.1f} tokens/s); max_memory_allocated "
+          f"{peak} bytes; flash launches {n_fwd} forward and {n_bwd} backward "
+          f"in {LM_TRAIN_STEPS} steps; on {card}")
+    print(f"[lm_train] profiled step {prof_ms:.3f} ms: device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {idle:.4f}, {kernels} kernel "
+          f"launches; bound {flop_issue / BF16_OPS_PER_S * 1e3:.3f} ms "
+          f"({flop_issue:.4g} FLOP, 8 N T with the remat forward, at 989 "
+          f"TFLOP/s; counted finer, {flop_fine:.4g} FLOP, "
+          f"{flop_fine / BF16_OPS_PER_S * 1e3:.3f} ms) and AdamW "
+          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"({adam_bytes} bytes, 28 a parameter, over 3.35 TB/s) on {card}")
+    require(len(seen) == 1 and glm_key[:3] == (
+        (LM_TRAIN_B, LM_TRAIN_S, cfg.n_heads, cfg.head_dim),
+        (LM_TRAIN_B, LM_TRAIN_S, cfg.n_kv_heads, cfg.head_dim), "bfloat16"),
+        f"lm_train: attention shapes {list(seen)}")
+    del trainer, state, stream, mu, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) smoke configurations at float32: card against CPU, then 3 steps
+    smokes = [("moe", get_arch("mixtral-8x22b", smoke=True), "topk", 1),
+              ("ssm", get_arch("falcon-mamba-7b", smoke=True), "sign", 1),
+              ("hybrid", get_arch("hymba-1.5b", smoke=True), "none", 2),
+              ("encdec", get_arch("seamless-m4t-large-v2", smoke=True),
+               "none", 1),
+              ("qat", qat_config(), "none", 1)]
+    texts, failures = [], []
+    with record_attention(L, key) as (sseen, _):
+        for label, scfg, compress, accum in smokes:
+            scfg = dataclasses.replace(scfg, compute_dtype="float32")
+            cpu_p = lm.init_params(scfg, torch.Generator().manual_seed(0))
+            card_p = copy.deepcopy(cpu_p).to(dev)
+            with tf32(False):
+                cl, cg = loss_and_grads(scfg, cpu_p, smoke_batch(
+                    torch, scfg, "cpu"), accum)
+                gl, gg = loss_and_grads(scfg, card_p, smoke_batch(
+                    torch, scfg, dev), accum)
+            lerr = abs(float(gl) - float(cl)) / max(1.0, abs(float(cl)))
+            gerrs = leaf_errs(torch, gg, cg)
+            worst = max(gerrs)
+            names = lm.leaf_names(cpu_p)
+            if not (lerr <= TRAIN_CARD_TOL and worst <= TRAIN_CARD_TOL):
+                failures.append(f"{label}: loss {lerr}, leaf "
+                                f"{names[gerrs.index(worst)]} {worst}")
+            sopt = AdamW(lr=1e-3, weight_decay=0.01)
+            st = init_state(scfg, sopt, params=card_p, compress=compress)
+            tr = Trainer(make_train_step(scfg, sopt, compress=compress,
+                                         grad_accum=accum), st)
+            sl = []
+            it = iter(lambda: smoke_batch(torch, scfg, dev, len(sl)), None)
+            for _ in range(SMOKE_STEPS):
+                sl.append(tr.run(it, 1, log_every=1,
+                                 log_fn=lambda *_: None)["loss"])
+            require(all(math.isfinite(x) for x in sl),
+                    f"lm_train {label}: losses {sl}")
+            texts.append(f"{label} ({scfg.name}, compress {compress}, "
+                         f"grad_accum {accum}): step 1 loss {float(cl):.6f} "
+                         f"CPU / {float(gl):.6f} card (err {lerr:.3g}), worst "
+                         f"leaf {names[gerrs.index(worst)]} {worst:.3g}; "
+                         f"losses {[round(x, 4) for x in sl]}")
+    for t in texts:
+        print(f"[lm_train] {t}")
+    require(not failures, f"lm_train: card against CPU beyond "
+            f"{TRAIN_CARD_TOL}: {failures}")
+
+    # (d) checkpoints at smoke width on the card
+    ccfg = get_arch(LM_TRAIN_ARCH, smoke=True)
+    copt = AdamW(lr=1e-3, weight_decay=0.01)
+    with tempfile.TemporaryDirectory() as d:
+        tr1 = Trainer(make_train_step(ccfg, copt), init_state(
+            ccfg, copt, torch.Generator(device=dev).manual_seed(0)),
+            ckpt_dir=d, ckpt_every=3)
+        tr1.run(batches(ccfg, 2, 64, 0, dev), 3, log_fn=lambda *_: None)
+        require(ckpt.latest_step(d) == 3, f"lm_train: latest step "
+                f"{ckpt.latest_step(d)}, expected 3")
+        tr2 = Trainer(make_train_step(ccfg, copt), init_state(
+            ccfg, copt, torch.Generator(device=dev).manual_seed(1)),
+            ckpt_dir=d, ckpt_every=3)
+        same = all(torch.equal(a, b) for a, b in zip(
+            lm.leaves(tr1.state.params), lm.leaves(tr2.state.params)))
+        same_opt = all(torch.equal(a, b) for a, b in zip(
+            tr1.state.opt.mu + tr1.state.opt.nu,
+            tr2.state.opt.mu + tr2.state.opt.nu))
+        require(tr2.step == 3 and same and same_opt,
+                f"lm_train: resumed at step {tr2.step}, parameters equal "
+                f"{same}, moments equal {same_opt}")
+
+        # step 4 runs, step 5 raises on every retry
+        real, calls = tr2.train_step, []
+
+        def failing(state, batch):
+            calls.append(len(calls))
+            if len(calls) > 1:
+                raise RuntimeError("injected failure")
+            return real(state, batch)
+
+        tr2.train_step = failing
+        try:
+            tr2.run(batches(ccfg, 2, 64, 0, dev), 3, log_fn=lambda *_: None)
+            raised = False
+        except RuntimeError:
+            raised = True
+        with open(os.path.join(d, "step_00000004", "manifest.json")) as f:
+            extra = json.load(f)["extra"]
+        require(raised and ckpt.latest_step(d) == 4 and extra == {
+            "emergency": True}, f"lm_train: emergency checkpoint "
+            f"{ckpt.latest_step(d)} {extra}")
+    print(f"[lm_train] checkpoint: {ccfg.name} saved at step 3, a new "
+          "Trainer resumed at step 3 with parameters and moments bit for "
+          f"bit; a step that raised ({len(calls) - 1} tries) left an "
+          "emergency checkpoint at step 4")
+
+    # (a) the backward kernel at every shape the phase launched it at
+    ragged = torch.Generator(device=dev).manual_seed(5)
+    shapes = dict(sseen)
+    shapes[("ragged",)] = tuple(
+        torch.randn(s, generator=ragged, device=dev).to(torch.bfloat16)
+        for s in ((1, 100, 4, 64), (1, 100, 2, 64), (1, 100, 2, 64))) + (
+        {"causal": True, "window": 0},)
+    bwd_errs = {}
+    for k_, (q, k, v, kw) in shapes.items():
+        require(q.device.type == "cuda", f"lm_train: {k_} recorded on "
+                f"{q.device}")
+        flash_grads_close(torch, bwd_errs, str(k_), q, k, v, kw)
+    kinds = sorted(str(k_) for k_ in shapes)
+    require(any(k_[2] == "float32" for k_ in sseen)
+            and any(k_[4] > 0 and k_[1][2] < k_[0][2] for k_ in sseen)
+            and any(not k_[3] and k_[0][1] != k_[1][1] for k_ in sseen),
+            f"lm_train: no float32, windowed GQA or cross shape among {kinds}")
+    print(f"[lm_train] flash backward within 2e-4 (float32) / 2e-2 (bf16) x "
+          f"max(1, max |plain|) of autograd through attention_ref at "
+          + "; ".join(f"{k_}: {e:.3g}" for k_, e in sorted(
+              bwd_errs.items())))
+
+    # rows 7h / 7i: glm4-9b's training shape
+    name_f = "flash_attention glm4-9b train forward"
+    name_b = "flash_attention_backward glm4-9b train"
+    out, lse, dout, berr = flash_grads_close(torch, errs, name_b, gq, gk, gv,
+                                             gkw)
+    ferr = float((out.float() - attention_ref(gq, gk, gv, **gkw).float())
+                 .abs().max())
+    require(ferr <= LM_KERNEL_TOL, f"{name_f}: error {ferr}")
+    errs[name_f] = ferr
+    fwd = lambda: flash_attention_forward(gq, gk, gv, **gkw)  # noqa: E731
+    bwd = lambda: flash_attention_backward(  # noqa: E731
+        gq, gk, gv, out, dout, lse, **gkw)
+    f_bytes = nbytes(gq, gk, gv, out, lse)
+    b_bytes = nbytes(gq, gk, gv, out, dout, lse, gq, gk, gv)
+    f_ms, f_by = bound(f_bytes, 4 * dh * pairs, BF16_OPS_PER_S)
+    # S recomputed, dP, dV, dQ, dK: 10 dh flops a kept pair
+    b_ms, b_by = bound(b_bytes, 10 * dh * pairs, BF16_OPS_PER_S)
+    qt, kt, vt = (t_.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t_ in (gq, gk, gv))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=bool(causal), enable_gqa=True)
+    require(not window, f"lm_train: glm4's window {window}")
+    so = sdpa()
+    dt_ = dout.transpose(1, 2).contiguous()
+    check_close({}, name_f, so.detach().transpose(1, 2), out, LM_KERNEL_TOL,
+                "against SDPA")
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        so, (qt, kt, vt), dt_, retain_graph=True)
+    sdpa_both = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt_)  # noqa
+    with torch.no_grad():
+        row_f = {"name": name_f, "route": "cuda",
+                 "source": KERNELS["flash_attention"][0],
+                 "replaces": KERNELS["flash_attention"][1],
+                 "launches": n_fwd, "max_abs_err": ferr, "ms": time_ms(fwd),
+                 "plain_ms": time_ms(lambda: attention_ref(gq, gk, gv, **gkw),
+                                     iters=10, reps=3),
+                 "bound_ms": f_ms, "bound_by": f_by,
+                 "library_ms": time_ms(sdpa)}
+    row_b = {"name": name_b, "route": "cuda",
+             "source": KERNELS["flash_attention_backward"][0],
+             "replaces": KERNELS["flash_attention_backward"][1],
+             "launches": n_bwd, "max_abs_err": berr, "ms": time_ms(bwd, 50),
+             "plain_ms": time_ms(lambda: attention_backward_ref(
+                 gq, gk, gv, dout, **gkw), iters=5, reps=3),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(sdpa_bwd, 50)}
+    f_us, _ = device_us(fwd, "flash_attention_kernel", 20)
+    bwd_us, n_seen = device_us(bwd, "flash_bwd", 10)
+    bwd_call_us = bwd_us * n_seen / 10 if n_seen else None
+    with torch.no_grad():
+        sf_us, sf_n = device_us(sdpa, None, 20)
+    sb_us, sb_n = device_us(sdpa_both, None, 10)
+    print(f"[lm_train] flash forward at glm4-9b's training shape (B {b_}, S "
+          f"{sq}, H {h}, KV {gk.shape[2]}, dh {dh}, causal, bf16, with its "
+          f"log-sum-exp): {row_f['ms']:.5f} ms, device {us_text(f_us)} a "
+          f"launch; plain {row_f['plain_ms']:.5f} ms; SDPA forward "
+          f"{row_f['library_ms']:.5f} ms (device "
+          f"{us_text(sf_us * sf_n / 20 if sf_n else None)} a call); bound "
+          f"{f_ms:.6f} ms by {f_by} ({f_bytes} bytes, {4 * dh * pairs} FLOP); "
+          f"max abs err {ferr:.4g}; {n_fwd} launches on {card}")
+    print(f"[lm_train] flash backward at that shape: {row_b['ms']:.5f} ms, "
+          f"device {us_text(bwd_call_us)} a launch (3 kernels); plain "
+          f"{row_b['plain_ms']:.5f} ms; SDPA backward "
+          f"{row_b['library_ms']:.5f} ms, SDPA forward + backward device "
+          f"{us_text(sb_us * sb_n / 10 if sb_n else None)} a call; bound "
+          f"{b_ms:.6f} ms by {b_by} ({b_bytes} bytes, {10 * dh * pairs} "
+          f"FLOP); max abs err {berr:.4g}; {n_bwd} launches on {card}")
+    del gq, gk, gv, out, lse, dout, qt, kt, vt, so, seen, sseen, shapes
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm_train] phase {time.perf_counter() - t_phase:.1f}s")
+    return [row_f, row_b]
+
 
 def main() -> int:
     try:
@@ -3211,7 +3640,8 @@ def main() -> int:
     phase_latency(torch, card)
     rows.append(phase_lm(torch, card, errs))
     rows += phase_lm_moe_encdec(torch, card, errs)
-    require(len(rows) == len(KERNELS) + 5, f"{len(rows)} kernel rows")
+    rows += phase_lm_train(torch, card, errs)
+    require(len(rows) == len(KERNELS) + 6, f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

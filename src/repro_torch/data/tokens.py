@@ -1,12 +1,16 @@
-"""LM token stream: a deterministic synthetic batch in (seed, step).
+"""LM token stream: a deterministic synthetic batch in (seed, step), and
+a background prefetch thread.
 
 The distribution is a Zipfian unigram mix with short-range repetition
-structure, so small models have learnable signal. numpy only; the
-reference's sharded placement and prefetch thread wait for the training
-slice (ROADMAP Queue 1).
+structure, so small models have learnable signal. The stream is numpy
+only; ``Prefetcher`` keeps ``depth`` batches in flight ahead of the
+consumer on a host thread. The reference's sharded placement
+(``sharded_batch``) waits for the multi-device slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -35,3 +39,34 @@ def lm_batch(cfg: ArchConfig, batch: int, seq: int, seed: int, step: int
     """(tokens, labels): labels are next-token shifted."""
     stream = synth_tokens(cfg, batch, seq + 1, seed, step)
     return stream[:, :-1], stream[:, 1:]
+
+
+class Prefetcher:
+    """Background-thread pipeline: compute ``depth`` batches ahead of the
+    consumer (``make_batch(step)`` for step 0, 1, ...)."""
+
+    def __init__(self, make_batch, depth: int = 2):
+        self._make = make_batch
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = 0
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        while not self._stop.is_set():
+            item = self._make(self._step)
+            self._step += 1
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)

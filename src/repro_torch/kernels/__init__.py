@@ -14,7 +14,10 @@ version.
                     ``xnor_matmul``);
   fanin_matmul    — the fanin-K gather-matmul of an FCP-sparse layer;
   flash_attention — online-softmax attention forward with causal,
-                    sliding-window and grouped-query heads.
+                    sliding-window and grouped-query heads
+                    (``flash_attention``), and its backward
+                    (``flash_attention_backward``, the gradient of the
+                    forward's ``torch.autograd`` Function on the card).
 
 Each kernel directory holds ops.py (the wrapper: checks, allocation,
 launch, launch counter) and ref.py (the plain torch version). A wrapper
@@ -28,7 +31,7 @@ def wrappers():
     """Kernel name -> wrapper (each counts its launches in ``.launches``)."""
     from .aig_sim import aig_sim_walk
     from .fanin_matmul import fanin_matmul
-    from .flash_attention import flash_attention
+    from .flash_attention import flash_attention, flash_attention_backward
     from .lut_eval import lut_eval, lut_eval_streamed
     from .lut_layer import lut_layer
     from .xnor_popcount import xnor_matmul_packed
@@ -36,7 +39,8 @@ def wrappers():
             "lut_layer": lut_layer, "aig_sim": aig_sim_walk,
             "xnor_popcount": xnor_matmul_packed,
             "fanin_matmul": fanin_matmul,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward}
 
 
 def launch_counts():

@@ -1,10 +1,11 @@
 """The LM of the port: dense / GQA / SWA / MoE / SSM / hybrid /
 encoder-decoder.
 
-One parameter schema and four entry points, as in the reference:
+One parameter schema and five entry points, as in the reference:
 
   init_params(cfg, generator)             -> Params (an nn.Module)
-  forward(cfg, params, tokens, ...)       -> hidden states (prefill form)
+  forward(cfg, params, tokens, ...)       -> hidden states (train/prefill)
+  lm_loss(cfg, params, hidden, labels)    -> chunked cross-entropy
   prefill(cfg, params, tokens, ...)       -> last-token logits + cache
   decode_step(cfg, params, cache, ...)    -> next-token logits + cache
 
@@ -15,15 +16,26 @@ mesh and are left out: ``dist/`` brings placement back (ROADMAP Queue 1).
 ``decode_step`` writes the cache in place (the reference returns a new
 one). The encoder-decoder family takes the encoder's input as
 ``enc_embeds`` (B, F, D), stubbed frame embeddings, as the reference
-does. The training loss waits for the training slice.
+does.
+
+Training (``repro_torch.train.loop``) differentiates ``forward`` and
+``lm_loss`` with autograd, from float32 ``Params`` (never from
+``cast_weights_``'d ones). With grad mode on, ``forward`` recomputes each
+block in the backward (``torch.utils.checkpoint``), as the reference
+wraps each in ``jax.checkpoint``; on the card its attention is then the
+flash forward and backward kernels. ``leaves`` lists the trained
+tensors in the reference's order of leaves (keys sorted, layers in
+order), the FCP masks among them: the reference's train step
+differentiates and steps them too, while serving keeps them buffers.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -31,6 +43,7 @@ from repro_torch.models import mamba as M
 
 Tensor = torch.Tensor
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+LOSS_CHUNK = 512              # sequence chunk for cross-entropy
 # the weight matrices cast once to the compute type (``cast_weights_``);
 # the MoE router stays float32, the type the reference computes it in
 MATRICES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w2", "w3"),
@@ -74,6 +87,54 @@ class Params(nn.Module):
 
     def keys(self):
         return [*self._parameters, *self._buffers, *self._modules]
+
+
+def named_leaves(params: Params, prefix: str = "") -> List[Tuple[str, Tensor]]:
+    """Every tensor of ``params`` (parameters and the ``mask_*`` buffers)
+    as (``::``-joined key, tensor), keys sorted at each level and layers
+    in order: the reference's order of leaves, with ``layers`` unstacked
+    (``layers::0::attn::wq``)."""
+    out: List[Tuple[str, Tensor]] = []
+    for key in sorted(params.keys()):
+        v = params[key]
+        name = prefix + key
+        if isinstance(v, nn.ModuleList):
+            for i, sub in enumerate(v):
+                out += named_leaves(sub, f"{name}::{i}::")
+        elif isinstance(v, Params):
+            out += named_leaves(v, name + "::")
+        else:
+            out.append((name, v))
+    return out
+
+
+def leaves(params: Params) -> List[Tensor]:
+    """The tensors of ``named_leaves``, in its order."""
+    return [t for _, t in named_leaves(params)]
+
+
+def leaf_names(params: Params) -> List[str]:
+    return [name for name, _ in named_leaves(params)]
+
+
+def reference_ndims(params: Params) -> List[int]:
+    """Each leaf's dimensions as the reference's parameter tree has them:
+    one more for a leaf of ``layers`` or ``enc_layers``, which the
+    reference stacks on a leading layer axis. AdamW decays a leaf of
+    ndim >= 2, so the reference decays every per-layer leaf, norm scales
+    and biases included (ROADMAP "Reference caveats")."""
+    return [t.ndim + (name.startswith(("layers::", "enc_layers::")))
+            for name, t in named_leaves(params)]
+
+
+def require_trainable(params: Params) -> None:
+    """Raise unless ``params`` are as ``init_params`` makes them: an MLP
+    whose matrices ``cast_weights_`` prepared for serving cannot be
+    trained (its DoReFa and FCP mask are folded in)."""
+    for mod in params.modules():
+        if getattr(mod, "prepared", False):
+            raise ValueError("training starts from float32 Params, not "
+                             "from cast_weights_'d ones")
 
 
 def _require_supported(cfg: ArchConfig) -> None:
@@ -251,12 +312,23 @@ def _enc_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor) -> Tensor:
 # Forward (prefill form)
 # ---------------------------------------------------------------------------
 
+def _remat(fn, *args):
+    """``fn(*args)``; with grad mode on, recomputed in the backward
+    instead of keeping its activations (the reference's
+    ``jax.checkpoint`` of each block). The blocks draw no random
+    numbers, so the RNG state is not saved."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def encode(cfg: ArchConfig, params: Params, enc_embeds: Tensor) -> Tensor:
     """Encoder stack over stubbed frame embeddings (B, F, D)."""
     x = enc_embeds.to(L.cdtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
     for lp in params.enc_layers:
-        x = _enc_block(cfg, lp, x, positions)
+        x = _remat(_enc_block, cfg, lp, x, positions)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -286,7 +358,8 @@ def forward(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
         enc_out = encode(cfg, params, enc_embeds)
     auxes = []
     for lp in params.layers:
-        x, aux = _dec_block(cfg, lp, x, positions, enc_out, collect_kv)
+        x, aux = _remat(_dec_block, cfg, lp, x, positions, enc_out,
+                        collect_kv)
         auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     stack = ({key: torch.stack([a[key] for a in auxes]) for key in auxes[0]}
@@ -297,6 +370,41 @@ def forward(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
 def logits_head(cfg: ArchConfig, params: Params, hidden: Tensor) -> Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.matmul(hidden, head)
+
+
+def lm_loss(cfg: ArchConfig, params: Params, hidden: Tensor,
+            labels: Tensor) -> Tensor:
+    """Chunked cross-entropy: never materialises (B, S, V) logits.
+
+    Sequence chunks of LOSS_CHUNK: each chunk's logits are float32
+    (B, chunk, Vp) from the compute-type product, the padded-vocab
+    columns masked with -1e30; the sum of logsumexp - gold over chunks,
+    divided by B * S (a float32 tensor, as the reference divides in
+    float32)."""
+    b, s, _ = hidden.shape
+    vp, v = cfg.padded_vocab, cfg.vocab_size
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    dev = hidden.device
+    pad = None
+    if vp > v:
+        pad = torch.cat([torch.zeros((v,), dtype=torch.float32, device=dev),
+                         torch.full((vp - v,), L.NEG, dtype=torch.float32,
+                                    device=dev)])
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for c in range(s // chunk):
+        hk = hidden[:, c * chunk:(c + 1) * chunk]
+        lk = labels[:, c * chunk:(c + 1) * chunk].long()
+        logits = L.matmul(hk, head).float()
+        if pad is not None:
+            logits = logits + pad
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lk[..., None])[..., 0]
+        total = total + torch.sum(lse - gold)
+    return total / torch.full((), b * s, dtype=torch.float32, device=dev)
 
 
 # ---------------------------------------------------------------------------

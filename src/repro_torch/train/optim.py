@@ -8,13 +8,17 @@ eps is added after the bias corrections:
 
     p <- p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)
 
-``update`` changes the parameters in place and returns the new state,
+``update`` changes the parameters and the moments in place, leaf by
+leaf (one leaf's temporaries at a time), and returns the new state,
 which holds the step count and the moments, in the parameters' order.
+With ``mixed_precision`` the state also holds a float32 ``master`` copy
+that the rule steps, and the live parameters become its bf16 cast
+(``cast_params``), as the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Sequence, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,12 +36,12 @@ def global_norm(tensors: Sequence[Tensor]) -> Tensor:
     return torch.sqrt(acc)
 
 
-def _clip(grads: List[Tensor], grad_clip: float) -> List[Tensor]:
+def _clip_scale(grads: Sequence[Tensor], grad_clip: float) -> Tensor:
+    """min(1, grad_clip / (global norm + 1e-9)), float32."""
     gnorm = global_norm(grads)
     # divide tensor by tensor: ``scalar / tensor`` rounds differently
-    scale = torch.clamp(torch.full_like(gnorm, grad_clip) / (gnorm + 1e-9),
-                        max=1.0)
-    return [g * scale for g in grads]
+    return torch.clamp(torch.full_like(gnorm, grad_clip) / (gnorm + 1e-9),
+                       max=1.0)
 
 
 def _lr(lr: LR, step: int):
@@ -48,45 +52,85 @@ class AdamWState(NamedTuple):
     step: int
     mu: List[Tensor]
     nu: List[Tensor]
+    master: Optional[List[Tensor]] = None   # float32 copy (mixed precision)
+
+
+def _set_bf16(p: Tensor, value: Tensor) -> None:
+    """p <- value rounded to bf16, in place (p becomes bf16 if it was
+    not)."""
+    if p.dtype == torch.bfloat16:
+        p.copy_(value)
+    else:
+        p.data = value.to(torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
 class AdamW:
+    """AdamW; with ``mixed_precision`` the live parameters are bf16 and
+    the float32 master copy lives in the optimizer state."""
+
     lr: LR = 1e-3
     b1: float = 0.9
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip: float = 1.0
+    mixed_precision: bool = False
 
     def init(self, params: Sequence[Tensor]) -> AdamWState:
-        return AdamWState(0,
-                          [torch.zeros_like(p, dtype=torch.float32)
-                           for p in params],
-                          [torch.zeros_like(p, dtype=torch.float32)
-                           for p in params])
+        def z(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        master = ([p.detach().float().clone() for p in params]
+                  if self.mixed_precision else None)
+        return AdamWState(0, [z(p) for p in params], [z(p) for p in params],
+                          master)
+
+    @torch.no_grad()
+    def cast_params(self, params: Sequence[Tensor]) -> Sequence[Tensor]:
+        """The live parameters cast to bf16 in place under
+        ``mixed_precision``; unchanged otherwise."""
+        if self.mixed_precision:
+            for p in params:
+                _set_bf16(p, p.detach())
+        return params
+
+    def _lr(self, step: int):
+        return _lr(self.lr, step)
 
     @torch.no_grad()
     def update(self, grads: Sequence[Tensor], state: AdamWState,
-               params: Sequence[Tensor]) -> AdamWState:
+               params: Sequence[Tensor],
+               ndims: Optional[Sequence[int]] = None) -> AdamWState:
+        """One step in place. ``ndims``: each leaf's dimensions as the
+        decay rule counts them (default ``p.ndim``; the LM's per-layer
+        leaves count the reference's stacked layer axis, see
+        ``models.lm.reference_ndims``)."""
         step = state.step + 1
-        grads = [g.float() for g in grads]
-        if self.grad_clip > 0:
-            grads = _clip(grads, self.grad_clip)
+        if ndims is None:
+            ndims = [p.ndim for p in params]
+        scale = (_clip_scale(grads, self.grad_clip) if self.grad_clip > 0
+                 else None)
         b1, b2 = self.b1, self.b2
-        mu = [b1 * m + (1 - b1) * g for m, g in zip(state.mu, grads)]
-        nu = [b2 * v + (1 - b2) * (g * g) for v, g in zip(state.nu, grads)]
         # the bias corrections in float32, as the reference's b ** t
         t = np.float32(step)
         bc1 = float(np.float32(1) - np.float32(b1) ** t)
         bc2 = float(np.float32(1) - np.float32(b2) ** t)
-        lr = _lr(self.lr, step)
-        for p, m, v in zip(params, mu, nu):
+        lr = self._lr(step)
+        src = state.master if state.master is not None else params
+        for p, m, v, g, nd in zip(src, state.mu, state.nu, grads, ndims):
+            g = g.float()
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_(g * (1 - b1))            # b1 m + (1 - b1) g
+            v.mul_(b2).add_((g * g) * (1 - b2))      # b2 v + (1 - b2) g^2
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            if self.weight_decay > 0 and p.ndim >= 2:
+            if self.weight_decay > 0 and nd >= 2:
                 u = u + self.weight_decay * p
             p.sub_(lr * u)
-        return AdamWState(step, mu, nu)
+        if state.master is not None:
+            for p, w in zip(params, state.master):
+                _set_bf16(p, w)
+        return AdamWState(step, state.mu, state.nu, state.master)
 
 
 class SGDState(NamedTuple):
@@ -109,7 +153,8 @@ class SGD:
         step = state.step + 1
         grads = list(grads)
         if self.grad_clip > 0:
-            grads = _clip(grads, self.grad_clip)
+            scale = _clip_scale(grads, self.grad_clip)
+            grads = [g * scale for g in grads]
         mom = [self.momentum * m + g for m, g in zip(state.momentum, grads)]
         lr = _lr(self.lr, step)
         for p, m in zip(params, mom):

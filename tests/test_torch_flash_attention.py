@@ -2,7 +2,10 @@
 repro.kernels.flash_attention (the Pallas kernel in interpret mode) on
 the same numpy inputs, at the reference test's tolerance
 (rtol = atol = 2e-4 in float32, 2e-2 in bfloat16): causal, sliding
-window, grouped-query heads and ragged sequence lengths."""
+window, grouped-query heads and ragged sequence lengths. The backward's
+plain version against ``jax.vjp`` of the reference's oracle (the
+reference has no backward kernel: it trains through XLA's autodiff)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,8 +13,11 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro.kernels.flash_attention import flash_attention_ref as ref_oracle
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                 attention_ref,
                                                  flash_attention,
+                                                 flash_attention_backward,
+                                                 flash_attention_forward,
                                                  flash_attention_ref)
 
 
@@ -124,3 +130,82 @@ def test_wrapper_rejects_bad_operands():
         flash_attention(torch.zeros((1, 4, 2, 130)),
                         torch.zeros((1, 4, 2, 130)),
                         torch.zeros((1, 4, 2, 130)))
+
+
+def _ref_multihead(q, k, v, causal, window):
+    """The reference wrapper's GQA layout around its dense oracle."""
+    b, sq, h, dh = q.shape
+    rep = h // k.shape[2]
+
+    def flat(t, n):
+        return jnp.repeat(t.transpose(0, 2, 1, 3), n, axis=1).reshape(
+            b * h, t.shape[1], dh)
+
+    out = ref_oracle(flat(q, 1), flat(k, rep), flat(v, rep), causal=causal,
+                     window=window)
+    return out.reshape(b, h, sq, dh).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (2, 64, 64, 4, 2, 16, True, 0),       # GQA
+    (2, 100, 100, 4, 1, 32, True, 24),    # window + ragged S
+    (1, 33, 70, 4, 4, 8, False, 0),       # Sq != Sk, no mask
+    (1, 40, 12, 2, 1, 8, False, 4),       # fully masked rows
+])
+def test_backward_plain_version_matches_reference_vjp(b, sq, sk, h, kv, dh,
+                                                      causal, win):
+    """``flash_attention_backward`` on CPU tensors (autograd through
+    ``attention_ref``) against ``jax.vjp`` of the reference's oracle in
+    its wrapper's GQA layout: dq, dk, dv within 1e-5 in float32."""
+    q, k, v = _qkv(b, sq, sk, h, kv, dh, seed=sq)
+    dout = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: _ref_multihead(*a, causal, win),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_forward(tq, tk, tv, causal=causal, window=win)
+    got = flash_attention_backward(tq, tk, tv, out, torch.from_numpy(dout),
+                                   lse, causal=causal, window=win)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_forward_log_sum_exp_on_the_cpu():
+    """The forward's log-sum-exp (the backward's input): logsumexp of the
+    scaled scores over each row's unmasked keys, +inf where every key
+    is masked, float32 (B, H, Sq); the output is ``flash_attention``'s."""
+    q, k, v = _qkv(1, 40, 12, 2, 1, 8, seed=3)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_forward(tq, tk, tv, causal=False, window=4)
+    assert torch.equal(out, flash_attention(tq, tk, tv, causal=False,
+                                            window=4))
+    assert lse.dtype == torch.float32 and lse.shape == (1, 2, 40)
+    s = np.einsum("bqhd,bkhd->bhqk", q, np.repeat(k, 2, axis=2)) / np.sqrt(8)
+    i, j = np.arange(40)[:, None], np.arange(12)[None, :]
+    keep = j > i - 4
+    for row in range(40):
+        got = lse[0, :, row].numpy()
+        if not keep[row].any():
+            assert np.isinf(got).all() and (got > 0).all()
+            continue
+        m = s[0, :, row, keep[row]]
+        want = np.log(np.exp(m - m.max(0)).sum(0)) + m.max(0)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        attention_lse_ref(tq, tk, causal=False, window=4).numpy(),
+        lse.numpy())
+
+
+def test_backward_wrapper_rejects_bad_operands():
+    q = torch.zeros((1, 4, 2, 8))
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError):
+        flash_attention_backward(q, q, q, q, q[:, :3], lse)     # dout shape
+    with pytest.raises(ValueError):
+        flash_attention_backward(q, q, q, q, q, lse[:, :1])     # lse shape
+    with pytest.raises(ValueError):
+        flash_attention_backward(q, q, q, q, q.bfloat16(), lse)  # dout type
+    with pytest.raises(ValueError):
+        flash_attention_backward(q, q, q, q, q, lse.double())

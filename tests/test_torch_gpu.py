@@ -14,7 +14,12 @@ from repro_torch.device import NoCudaDeviceError
 from repro_torch.kernels.aig_sim import (aig_sim, aig_sim_ref, aig_sim_walk,
                                          max_sweeps, plan_walk)
 from repro_torch.kernels.fanin_matmul import fanin_matmul, fanin_matmul_ref
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_backward_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_backward,
+                                                 flash_attention_forward)
 from repro_torch.kernels.lut_eval import (level_starts, lut_eval, lut_eval_ref,
                                           lut_eval_streamed,
                                           lut_eval_streamed_ref,
@@ -833,6 +838,141 @@ def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+# the flash backward: the gradient of the training forward's attention
+
+FLASH_BWD_SHAPES = [
+    # b, sq, sk, h, kv, dh, causal, window, dtype
+    (4, 1024, 1024, 32, 2, 128, True, 0, torch.bfloat16),  # glm4-9b train
+    (2, 256, 256, 8, 2, 128, True, 0, torch.float32),      # float32, dh 128
+    (2, 128, 128, 4, 2, 16, True, 64, torch.bfloat16),     # mixtral smoke
+    (2, 128, 128, 4, 2, 16, True, 64, torch.float32),
+    (2, 64, 8, 4, 4, 16, False, 0, torch.bfloat16),        # seamless cross
+    (2, 64, 8, 4, 4, 16, False, 0, torch.float32),
+    (1, 100, 100, 4, 2, 64, True, 0, torch.bfloat16),      # ragged S
+    (1, 100, 100, 4, 2, 64, True, 0, torch.float32),
+    (1, 70, 90, 2, 1, 100, False, 40, torch.float32),      # window only
+    (1, 300, 130, 2, 1, 8, True, 4, torch.float32),        # fully masked rows
+    (1, 300, 130, 2, 1, 8, False, 4, torch.bfloat16),
+    (1, 65, 200, 3, 1, 7, True, 9, torch.bfloat16),        # odd dh
+]
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _plain_grads(q, k, v, dout, causal, window):
+    """Autograd through ``attention_ref`` in full float32 (TF32 off)."""
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return attention_backward_ref(q, k, v, dout, causal=causal,
+                                      window=window)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+def _grads_close(got, want, dtype):
+    """Each gradient within the forward's tolerance x max(1, max |plain|)."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= FLASH_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win,dtype", FLASH_BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
+                                             dh, causal, win, dtype):
+    """The backward kernel's dq, dk, dv against autograd through
+    ``attention_ref``, at the training path's shapes (glm4-9b's, the
+    mixtral smoke's windowed GQA, the seamless smoke's cross-attention)
+    and ragged, window-only, fully masked and odd-dh ones; one launch."""
+    rng = np.random.default_rng(sq + dh + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device, dtype) for s in (
+                   (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    dout = torch.from_numpy(rng.normal(size=(b, sq, h, dh)).astype(
+        np.float32)).to(cuda_device, dtype)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=win)
+    launches = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, dout, lse, causal=causal,
+                                   window=win)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == launches + 1
+    _grads_close(got, _plain_grads(q, k, v, dout, causal, win), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (1, 1024, 1024, 4, 2, 64, True, 0), (1, 300, 130, 2, 1, 8, True, 4),
+    (2, 64, 8, 4, 4, 16, False, 0), (2, 100, 77, 4, 1, 32, True, 24)])
+def test_flash_forward_with_lse_is_unchanged(cuda_device, b, sq, sk, h, kv,
+                                             dh, causal, win, dtype):
+    """Asking the forward for its log-sum-exp leaves its output bit for
+    bit as the serving launch gives it; the log-sum-exp is the plain
+    version's within 1e-4 (x max(1, |lse|)), +inf on fully masked rows."""
+    rng = np.random.default_rng(sq + dh)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device, dtype) for s in (
+                   (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    want = flash_attention(q, k, v, causal=causal, window=win)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=win)
+    assert torch.equal(out, want)
+    ref = attention_lse_ref(q, k, causal=causal, window=win)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    assert ((lse[fin] - ref[fin]).abs() / ref[fin].abs().clamp(min=1)
+            ).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradients_on_card_match_plain(cuda_device, dtype):
+    """``layers.attention`` on the card under autograd: the forward and
+    backward kernels launch once each and q, k, v get the plain
+    version's gradients (the forward used to allocate its output outside
+    autograd, so q, k and v got none)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device, dtype).requires_grad_(True)
+               for s in ((2, 96, 4, 32), (2, 96, 2, 32), (2, 96, 2, 32)))
+    dout = torch.from_numpy(rng.normal(size=(2, 96, 4, 32)).astype(
+        np.float32)).to(cuda_device, dtype)
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    out = L.attention(q, k, v, causal=True, window=40)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_backward.launches == bwd + 1
+    _grads_close(got, _plain_grads(q.detach(), k.detach(), v.detach(), dout,
+                                   True, 40), dtype)
+
+
+def test_lm_forward_under_grad_reaches_wq_wk_wv(cuda_device):
+    """The glm4 smoke's loss on the card: every layer's wq, wk and wv
+    get a non-zero gradient through the flash kernels (2 forward
+    launches a layer, the block's recomputation included, and 1
+    backward)."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import lm
+    from repro_torch.train import loop
+    cfg = SMOKES["glm4-9b"]
+    params = lm.init_params(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32)).to(cuda_device)
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    _, grads = loop.loss_and_grads(cfg, params, {"tokens": toks[:, :-1],
+                                                 "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 2 * cfg.n_layers
+    assert flash_attention_backward.launches == bwd + cfg.n_layers
+    named = dict(zip(lm.leaf_names(params), grads))
+    for i in range(cfg.n_layers):
+        for w in ("wq", "wk", "wv"):
+            g = named[f"layers::{i}::attn::{w}"]
+            assert torch.isfinite(g).all() and g.abs().max() > 0, (i, w)
 
 
 # the LM stack: prefill attention through the flash kernel

@@ -65,7 +65,13 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.data.tokens",
                                     "repro_torch.serving.engine",
                                     "repro_torch.weights",
-                                    "repro_torch.examples.serve_lm"])
+                                    "repro_torch.examples.serve_lm",
+                                    "repro_torch.train.loop",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.dist.compress",
+                                    "repro_torch.dist.fault",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.examples.train_lm_qat"])
 def test_training_modules_import_without_jax(module):
     """Each module of the training, serving-at-scale, verification,
     benchmark and LM slices, alone in a fresh interpreter, leaves JAX
@@ -135,8 +141,12 @@ def test_entry_points_default_to_cuda():
     from repro_torch.synth.simulate import random_words
     mapped = _tiny_mapped()
     words = random_words(mapped.n_pis, 2, seed=0)
-    from repro_torch.examples import serve_lm
+    from repro_torch.examples import serve_lm, train_lm_qat
+    from repro_torch.launch.train import main as train_main
     for entry in (lambda: check_main(["--fast"]),
+                  lambda: train_main(["--arch", "glm4-9b", "--smoke",
+                                      "--steps", "1"]),
+                  lambda: train_lm_qat.main(["--steps", "1"]),
                   lambda: serve_lm.main([]),
                   lambda: check_main(["--static"]),
                   lambda: table1(steps=1, archs=("jsc-s",)),
