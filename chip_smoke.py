@@ -3572,7 +3572,7 @@ def phase_lm_train(torch, card, errs):
                  gq, gk, gv, dout, **gkw), iters=5, reps=3),
              "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": time_ms(sdpa_bwd, 50)}
-    f_us, _ = device_us(fwd, "flash_attention_kernel", 20)
+    f_us, _ = device_us_seen(fwd, "flash_attention_kernel", 20)
     bwd_us, n_seen = device_us(bwd, "flash_bwd", 10)
     bwd_call_us = bwd_us * n_seen / 10 if n_seen else None
     with torch.no_grad():
@@ -3598,6 +3598,300 @@ def phase_lm_train(torch, card, errs):
     torch.cuda.empty_cache()
     print(f"[lm_train] phase {time.perf_counter() - t_phase:.1f}s")
     return [row_f, row_b]
+
+
+# ---------------------------------------------------------------------------
+# dist: the LM stack placed over a device mesh
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3                # the launcher's steps a run (step 1 warms up)
+PR24_STEP_MS = 256.704        # lm_train's median step, PR 24's last run
+DIST_TOL = 1e-5               # placed against unplaced at float32
+TP_LOCAL = (4, 1024, 16, 1, 128)  # glm4-9b's heads a rank at --model-par 2
+
+
+def phase_dist(torch, card):
+    """The placed paths on the card. (a) World 1 over NCCL (a mesh
+    (1, 1) from ``make_host_mesh``): glm4-9b at full width, 4 of 40
+    layers, three steps through the launcher (``launch.train.setup``)
+    unplaced and with ``--model-par 1``: the losses and gradient norms
+    of both, the step ms beside PR 24's, peak memory, the placed run's
+    DTensor leaves, its redistributes at constraint sites and the flash
+    kernel launched from its placed attention, none of them in the
+    unplaced run; (b) a decode step under ``serve_tp_only`` against the
+    unplaced one on the same cache (tokens equal), (c) the pipeline at
+    one stage against ``lm.forward``, (d) a placed smoke checkpoint
+    restored with ``shardings=`` bit for bit, (e) the smoke checks of
+    ``repro_torch.dist.checks`` at (1, 1) within DIST_TOL (the decode
+    check's placed prefill too). (f) Two ranks
+    on the one card over gloo (NCCL refuses a second rank on a card it
+    already has): the GPipe check at two stages, forward and gradient,
+    within DIST_TOL; DTensor's own collectives do not run there (see
+    PERF.md). (g) The flash forward with its log-sum-exp and the
+    backward at the local shape of glm4-9b at --model-par 2 (H 16, KV 1)
+    against their plain versions."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import checks, world
+    from repro_torch.dist import shardings as sh
+    from repro_torch.dist.pipeline import pipeline_lm_forward
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention_backward, flash_attention_forward)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import setup
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh(1)
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+            and tuple(mesh.shape) == (1, 1),
+            f"dist: {dist.get_backend()} world {dist.get_world_size()}, "
+            f"mesh {tuple(mesh.shape)}")
+
+    def branches(before):
+        return {k: v - before.get(k, 0) for k, v in sh.COUNTS.items()
+                if v - before.get(k, 0)}
+
+    # (a) the launcher's training step, unplaced and on the mesh (1, 1)
+    argv = ["--arch", LM_TRAIN_ARCH, "--layers", str(LM_TRAIN_LAYERS),
+            "--batch", str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S),
+            "--steps", str(DIST_STEPS), "--log-every", "1"]
+    runs = {}
+    for label, extra in (("unplaced", []), ("placed", ["--model-par", "1"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = setup(argv + extra)
+        before = dict(sh.COUNTS)
+        reset_launch_counts()
+        losses, gnorms, ms = [], [], []
+        with sh.use_mesh(run.mesh):
+            for _ in range(DIST_STEPS):
+                t0 = time.perf_counter()
+                last = run.trainer.run(run.stream, 1, log_every=1,
+                                       log_fn=lambda *_: None)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(last["loss"])
+                gnorms.append(last["grad_norm"])
+        leaves = lm.leaves(run.trainer.state.params)
+        runs[label] = {
+            "losses": losses, "gnorms": gnorms, "ms": ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "flash": launch_counts()["flash_attention"],
+            "branches": branches(before),
+            "dtensor": sum(isinstance(t, DTensor) for t in leaves),
+            "leaves": len(leaves)}
+        del run, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    up, pl = runs["unplaced"], runs["placed"]
+    require(up["dtensor"] == 0 and not up["branches"],
+            f"dist: the unplaced run reached a placed branch: {up}")
+    require(pl["dtensor"] == pl["leaves"],
+            f"dist: {pl['dtensor']} of {pl['leaves']} leaves are DTensors")
+    require(pl["branches"].get("constraint", 0) > 0
+            and pl["branches"].get("attention", 0) > 0,
+            f"dist: placed branches taken {pl['branches']}")
+    require(pl["flash"] == up["flash"] == 2 * LM_TRAIN_LAYERS * DIST_STEPS,
+            f"dist: flash launches placed {pl['flash']}, unplaced "
+            f"{up['flash']}")
+    d_loss = max(abs(a - b) for a, b in zip(pl["losses"], up["losses"]))
+    d_gn = max(abs(a - b) for a, b in zip(pl["gnorms"], up["gnorms"]))
+    require(all(math.isfinite(x) for x in pl["losses"] + pl["gnorms"])
+            and d_loss <= LM_PART_TOL * max(1.0, max(up["losses"]))
+            and d_gn <= LM_PART_TOL * max(1.0, max(up["gnorms"])),
+            f"dist: placed losses {pl['losses']} / gradient norms "
+            f"{pl['gnorms']} against {up['losses']} / {up['gnorms']}")
+    for label, r in runs.items():
+        print(f"[dist] {LM_TRAIN_ARCH} {LM_TRAIN_LAYERS} of 40 layers, B "
+              f"{LM_TRAIN_B} x S {LM_TRAIN_S}, launcher "
+              f"{'--model-par 1 (mesh (1, 1), NCCL world 1)' if label == 'placed' else 'without a mesh flag'}: "
+              f"losses {r['losses']}, gradient norms {r['gnorms']}, ms a "
+              f"step {[round(x, 3) for x in r['ms']]} (median of steps "
+              f"2-{DIST_STEPS} {statistics.median(r['ms'][1:]):.3f} ms; PR "
+              f"24's unplaced median {PR24_STEP_MS} ms), "
+              f"max_memory_allocated {r['peak']} bytes, flash launches "
+              f"{r['flash']}, DTensor leaves {r['dtensor']} of "
+              f"{r['leaves']}, placed branches {r['branches']} on {card}")
+    print(f"[dist] placed against unplaced: max |loss difference| {d_loss:.6g}"
+          f", max |gradient norm difference| {d_gn:.6g}")
+
+    # (b) decode under serve_tp_only, (c) the pipeline at one stage
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_LAYERS)
+    params = lm.cast_weights_(cfg, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, LM_PROMPT + 1))).to(dev)
+    pos = torch.full((4,), LM_PROMPT, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        want_h = lm.forward(cfg, params, tokens=toks[:, :LM_PROMPT])[0]
+        before = dict(sh.COUNTS)
+        with sh.use_mesh(mesh):
+            got_h = pipeline_lm_forward(cfg, params, toks[:, :LM_PROMPT],
+                                        mesh, n_micro=2)
+        pipe = branches(before)
+        d_pipe = float((got_h.float() - want_h.float()).abs().max())
+        require(pipe.get("pipeline") == 1 and bool(
+            ((got_h.float() - want_h.float()).abs()
+             <= lm_tol(want_h.float())).all()),
+            f"dist: the pipeline at one stage against forward, max abs "
+            f"{d_pipe} ({pipe})")
+        del want_h, got_h
+        _, cache = lm.prefill(cfg, params, toks[:, :LM_PROMPT],
+                              max_seq=LM_MAX_SEQ)
+        want, _ = lm.decode_step(cfg, params, {k: v.clone() for k, v in
+                                               cache.items()},
+                                 toks[:, LM_PROMPT:], pos)
+        shard = sh.cache_pspec(mesh, cache)
+        placed_cache = {k: sh.place(v, shard[k]) for k, v in cache.items()}
+        sh.place_params(mesh, params)
+        before = dict(sh.COUNTS)
+        with checks.opts(serve_tp_only=True), sh.use_mesh(mesh):
+            got, _ = lm.decode_step(cfg, params, placed_cache,
+                                    toks[:, LM_PROMPT:], pos)
+        dec = branches(before)
+        got = got.full_tensor()
+    d_dec = float((got.float() - want.float()).abs().max())
+    require(torch.equal(got.argmax(-1), want.argmax(-1))
+            and dec.get("decode_heads", 0) == LM_TRAIN_LAYERS,
+            f"dist: placed decode tokens {got.argmax(-1).tolist()} against "
+            f"{want.argmax(-1).tolist()}, branches {dec}")
+    print(f"[dist] {LM_TRAIN_ARCH} {LM_TRAIN_LAYERS} layers (bf16 weights): "
+          f"decode step under serve_tp_only on the placed cache (k "
+          f"{shard['k'].spec}): tokens {got.argmax(-1).tolist()} equal the "
+          f"unplaced step's, max |logit difference| {d_dec:.6g}, branches "
+          f"{dec}; pipeline at one stage (2 microbatches) against forward "
+          f"at S {LM_PROMPT}: max abs {d_pipe:.6g}")
+    del params, cache, placed_cache, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a placed checkpoint restored with shardings=, bit for bit
+    scfg = get_arch(LM_TRAIN_ARCH, smoke=True)
+    sp = lm.init_params(scfg, torch.Generator(device=dev).manual_seed(0))
+    want_leaves = [t.detach().clone() for t in lm.leaves(sp)]
+    sh.place_params(mesh, sp)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 3, sp)
+        restored = ckpt.restore_latest(d, sp, shardings=sh.params_shardings(
+            mesh, sp))
+    flat = dict(ckpt._walk(restored))
+    got_leaves = [flat[n] for n in lm.leaf_names(sp)]
+    require(all(isinstance(t, DTensor) for t in got_leaves) and all(
+        torch.equal(t.full_tensor(), w) for t, w in
+        zip(got_leaves, want_leaves)),
+        "dist: the placed checkpoint did not restore bit for bit")
+    print(f"[dist] checkpoint: {scfg.name} placed, saved and restored with "
+          f"shardings= onto the mesh: {len(got_leaves)} leaves bit for bit")
+
+    # (e) the smoke checks at (1, 1), float32
+    rng = np.random.default_rng(1)
+    f32 = dict(compute_dtype="float32")
+    glm = dataclasses.replace(scfg, **f32)
+    glm4 = dataclasses.replace(scfg, n_layers=4, **f32)
+    phi = dataclasses.replace(get_arch("phi4-mini-3.8b", smoke=True), **f32)
+
+    def np_params(c):
+        return checks.stacked_numpy(lm.init_params(
+            c, torch.Generator().manual_seed(0)))
+
+    pipe_job = ("pipeline", "pipeline", dict(
+        cfg=glm4, params_np=np_params(glm4), toks_np=rng.integers(
+            0, 512, (4, 32)).astype(np.int32), shape=(1, 2), device="cuda"))
+    jobs = [("fsdp", "fsdp", dict(cfg=phi, params_np=np_params(phi),
+                                  toks_np=rng.integers(0, 512, (8, 64)).astype(
+                                      np.int32), shape=(1, 1),
+                                  device="cuda")),
+            ("decode", "decode", dict(
+                cfg=glm, params_np=np_params(glm), toks_np=rng.integers(
+                    0, 512, (4, 33)).astype(np.int32), shape=(1, 1),
+                device="cuda", prompt=32, max_seq=40)),
+            ("pipeline", "pipeline", dict(pipe_job[2], shape=(1, 1)))]
+
+    def close(label, got, want):
+        e = float(np.abs(np.asarray(got, np.float64) - want).max()
+                  / max(1.0, float(np.abs(want).max())))
+        require(e <= DIST_TOL, f"dist {label}: {e} beyond {DIST_TOL}")
+        return e
+
+    with tf32(False):
+        res = checks.run_checks(jobs)
+    texts = []
+    for label, r in res.items():
+        require("error" not in r, f"dist {label}:\n{r.get('error')}")
+        if label == "fsdp":
+            e = max([close(label, a, b) for a, b in
+                     zip(r["placed"][2], r["unplaced"][2])]
+                    + [close(label, r["placed"][i], r["unplaced"][i])
+                       for i in (0, 1)])
+        else:
+            e = close(label, r["placed"], r["unplaced"])
+            for a, b in (list(zip(r.get("grads_placed", []),
+                                  r.get("grads_unplaced", [])))
+                         + list(zip(r.get("prefill_placed", []),
+                                    r.get("prefill_unplaced", [])))):
+                e = max(e, close(label, a, b))
+        texts.append(f"{label} {e:.3g} {r['counts']}")
+    print(f"[dist] smoke checks at (1, 1), float32, placed against "
+          f"unplaced (max |diff| / max(1, max |unplaced|)): "
+          + "; ".join(texts))
+
+    # (f) two ranks on the one card: gloo, the GPipe check at two stages
+    t0 = time.perf_counter()
+    two = world.run(checks.run_checks, 2, ([pipe_job],), backend="gloo",
+                    device="cuda", timeout=300)
+    e2 = []
+    for rank, r in enumerate(two):
+        r = r["pipeline"]
+        require("error" not in r, f"dist two ranks:\n{r.get('error')}")
+        require(r["counts"].get("pipeline") == 1,
+                f"dist two ranks: {r['counts']}")
+        e2.append(max([close("pipeline x2", r["placed"], r["unplaced"])]
+                      + [close("pipeline x2", a, b) for a, b in zip(
+                          r["grads_placed"], r["grads_unplaced"])]))
+    print(f"[dist] two ranks on one card (gloo; NCCL refuses a second rank "
+          f"on a card): GPipe over 2 stages, 2 microbatches, glm4 smoke at "
+          f"4 layers, float32: hidden states and every gradient leaf within "
+          f"{max(e2):.3g} of the unplaced forward on each rank "
+          f"({time.perf_counter() - t0:.1f}s with the ranks' start)")
+
+    # (g) flash at glm4-9b's local shape at --model-par 2
+    b_, s_, h_, kv_, dh_ = TP_LOCAL
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((b_, s_, n, dh_), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (h_, kv_, kv_))
+    kw = {"causal": True, "window": 0}
+    local_errs = {}
+    out, lse, dout, berr = flash_grads_close(
+        torch, local_errs, "flash_attention_backward glm4-9b TP-local",
+        q, k, v, kw)
+    ferr = float((out.float() - attention_ref(q, k, v, **kw).float())
+                 .abs().max())
+    require(ferr <= LM_KERNEL_TOL, f"dist: flash at the TP-local shape: "
+            f"error {ferr}")
+    f_ms = time_ms(lambda: flash_attention_forward(q, k, v, **kw), 50)
+    b_ms = time_ms(lambda: flash_attention_backward(q, k, v, out, dout, lse,
+                                                    **kw), 20)
+    print(f"[dist] flash at glm4-9b's local shape at --model-par 2 (B {b_}, "
+          f"S {s_}, H {h_}, KV {kv_}, dh {dh_}, causal, bf16): forward with "
+          f"its log-sum-exp within {ferr:.4g} of attention_ref, "
+          f"{f_ms:.5f} ms; backward within {berr:.4g} (x max(1, |plain|)) "
+          f"of autograd through attention_ref, {b_ms:.5f} ms; on {card}")
+    del q, k, v, out, lse, dout
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f}s")
 
 
 def main() -> int:
@@ -3641,6 +3935,7 @@ def main() -> int:
     rows.append(phase_lm(torch, card, errs))
     rows += phase_lm_moe_encdec(torch, card, errs)
     rows += phase_lm_train(torch, card, errs)
+    phase_dist(torch, card)
     require(len(rows) == len(KERNELS) + 6, f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,13 @@
-"""LM token stream: a deterministic synthetic batch in (seed, step), and
-a background prefetch thread.
+"""LM token stream: a deterministic synthetic batch in (seed, step),
+sharded placement, and a background prefetch thread.
 
 The distribution is a Zipfian unigram mix with short-range repetition
 structure, so small models have learnable signal. The stream is numpy
-only; ``Prefetcher`` keeps ``depth`` batches in flight ahead of the
-consumer on a host thread. The reference's sharded placement
-(``sharded_batch``) waits for the multi-device slice (ROADMAP Queue 1).
+only and deterministic in (seed, step), so a restarted or replacement
+process regenerates identical data; ``sharded_batch`` places it on a
+mesh with each process copying only its own block, as the reference's
+``jax.make_array_from_callback``; ``Prefetcher`` keeps ``depth``
+batches in flight ahead of the consumer on a host thread.
 """
 from __future__ import annotations
 
@@ -39,6 +41,14 @@ def lm_batch(cfg: ArchConfig, batch: int, seq: int, seed: int, step: int
     """(tokens, labels): labels are next-token shifted."""
     stream = synth_tokens(cfg, batch, seq + 1, seed, step)
     return stream[:, :-1], stream[:, 1:]
+
+
+def sharded_batch(arrays, shardings):
+    """Host arrays (a dict of numpy arrays) as DTensors on the mesh of
+    ``shardings`` (the same keys, e.g. ``shardings.batch_shardings``):
+    each rank takes its own block of each."""
+    from repro_torch.dist.shardings import from_host
+    return {k: from_host(a, shardings[k]) for k, a in arrays.items()}
 
 
 class Prefetcher:

@@ -14,13 +14,17 @@ SignSGD"):
 Gradients, residuals and results are lists of tensors in the order of
 the parameters (``models.lm.leaves``); the state is a NamedTuple of
 such a list, so it rides inside ``TrainState`` and its checkpoints.
-Nothing is changed in place.
+Nothing is changed in place. On placed (DTensor) gradients both keep
+what they keep on the unsharded ones: top-k's cut is taken over the
+whole leaf, sign's scale is the whole leaf's mean.
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
+
+from repro_torch.dist.shardings import full
 
 Tensor = torch.Tensor
 
@@ -30,9 +34,10 @@ class EFState(NamedTuple):
 
 
 def init_ef(params: Sequence[Tensor]) -> EFState:
-    """Zero residuals shaped like the grads (float32 accumulation)."""
-    return EFState([torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in params])
+    """Zero residuals shaped (and placed) like the grads (float32
+    accumulation)."""
+    return EFState([torch.zeros_like(p, dtype=torch.float32)
+                    for p in params])
 
 
 def _accumulate(grads: Sequence[Tensor], ef: EFState) -> List[Tensor]:
@@ -49,7 +54,9 @@ def topk_compress(grads: Sequence[Tensor], ef: EFState, frac: float
     for a in acc:
         mag = a.abs()
         k = max(1, int(frac * mag.numel()))
-        thresh = torch.topk(mag.reshape(-1), k).values[-1]
+        # a placed leaf's cut is the whole leaf's (every rank gathers
+        # it), so each shard keeps what the unsharded top-k keeps
+        thresh = torch.topk(full(mag).reshape(-1), k).values[-1]
         sparse.append(torch.where(mag >= thresh, a, torch.zeros_like(a)))
     return sparse, EFState([a - s for a, s in zip(acc, sparse)])
 

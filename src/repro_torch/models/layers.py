@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core import quant as Q
+from repro_torch.dist import shardings as sh
 
 Tensor = torch.Tensor
 
@@ -230,8 +231,11 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     which raises on a shape it does not take (dh > 128) rather than
     handing it to a plain version. On a CPU tensor it is the twin of
     the reference's ``full_attention``, or of ``chunked_attention``
-    above ``ATTN_CHUNK_THRESHOLD`` tokens.
+    above ``ATTN_CHUNK_THRESHOLD`` tokens. On placed (DTensor) q, k, v
+    each rank runs the same on its local heads (``_placed_attention``).
     """
+    if sh.is_placed(q):
+        return _placed_attention(q, k, v, causal, window)
     if q.device.type == "cuda":
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, window=window)
@@ -239,6 +243,34 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=ATTN_CHUNK)
     return full_attention(q, k, v, causal=causal, window=window)
+
+
+def _placed_attention(q, k, v, causal: bool, window: int):
+    """``attention`` of placed q, k, v on each rank's whole KV groups.
+
+    Over each mesh dim the batch keeps its shards; over 'model' the
+    heads are sharded when the KV heads divide it (q's heads with them,
+    so a rank holds whole groups), else replicated there: the rule
+    table shards ``wk``'s columns whenever KV * dh divides, which can
+    leave a rank half a head (glm4-9b: KV 2 on a 4-way axis). q, k and v
+    are redistributed to those placements before the local attention,
+    never inside it, and the output keeps them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    kvh = k.shape[2]
+    place = []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if q.placements[i] == Shard(0):
+            place.append(Shard(0))
+        elif name == "model" and kvh % mesh.size(i) == 0:
+            place.append(Shard(2))
+        else:
+            place.append(Replicate())
+    ql, kl, vl = (sh.as_placed(t, mesh).redistribute(mesh, place).to_local()
+                  for t in (q, k, v))
+    sh.COUNTS["attention"] += 1
+    out = attention(ql, kl, vl, causal=causal, window=window)
+    return DTensor.from_local(out, mesh, place)
 
 
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
@@ -249,8 +281,24 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 
     q: (B, 1, H, dh); caches: (B, W, KV, dh); cache_positions: (B, W)
     absolute position per slot (-1 = empty); positions: (B,) current pos.
-    Grouped-GQA form: KV is never repeated.
+    Grouped-GQA form: KV is never repeated. On a mesh, with q or the
+    cache placed, it is ``_placed_decode_attention``.
     """
+    mesh = sh.active_mesh()
+    if mesh is not None and (sh.is_placed(q) or sh.is_placed(k_cache)):
+        return _placed_decode_attention(q, k_cache, v_cache,
+                                        cache_positions, positions, window,
+                                        mesh)
+    b, _, h, dh = q.shape
+    logits = _decode_logits(q, k_cache, cache_positions, positions, window)
+    probs = _softmax(logits).to(q.dtype)
+    out = einsum("bkgqw,bwkd->bqkgd", probs, v_cache)
+    return out.reshape(b, 1, h, dh)
+
+
+def _decode_logits(q: Tensor, k_cache: Tensor, cache_positions: Tensor,
+                   positions: Tensor, window: int) -> Tensor:
+    """Masked float32 scores (B, KV, G, 1, W) of the one query token."""
     b, _, h, dh = q.shape
     kvh = k_cache.shape[2]
     q5 = q.reshape(b, 1, kvh, h // kvh, dh)
@@ -261,10 +309,62 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
         (cache_positions <= positions[:, None])              # (B, W)
     if window > 0:
         valid &= cache_positions > (positions[:, None] - window)
-    logits = logits.masked_fill(~valid[:, None, None, None, :], NEG)
-    probs = _softmax(logits).to(q.dtype)
-    out = einsum("bkgqw,bwkd->bqkgd", probs, v_cache)
-    return out.reshape(b, 1, h, dh)
+    return logits.masked_fill(~valid[:, None, None, None, :], NEG)
+
+
+def _placed_decode_attention(q, k_cache, v_cache, cache_positions,
+                             positions, window: int, mesh):
+    """``decode_attention`` on a mesh, as the reference places it: the
+    batch over the widest data-parallel axes that divide it; heads over
+    'model' when the KV heads divide it, each rank attending with its
+    own heads; otherwise the cache stays sequence-sharded over 'model'
+    and q is replicated (it is tiny): each rank scores its slots of the
+    ring, and the softmax's max and sum and the P.V sum (in float32,
+    rounded once after it) reduce over 'model'. Runs on each rank's
+    local tensors with explicit all-reduces; the output keeps q's
+    placement of the branch."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    b, _, h, dh = q.shape
+    kvh, w = k_cache.shape[2], k_cache.shape[1]
+    msize = sh._mesh_axis_size(mesh, "model")
+    dp = sh._dp_for(mesh, b)
+    if kvh % msize == 0:
+        branch, qs, ks = "decode_heads", (dp, None, "model", None), \
+            (dp, None, "model", None)
+    elif w % msize == 0:
+        branch, qs, ks = "decode_sequence", (dp, None, None, None), \
+            (dp, "model", None, None)
+    else:
+        branch, qs, ks = "decode_replicated", (dp, None, None, None), \
+            (dp, None, None, None)
+    sh.COUNTS[branch] += 1
+
+    def local(t, spec):
+        return sh.to_local(t, mesh, sh.to_placements(
+            mesh, sh._prune_spec(mesh, tuple(t.shape), spec)))
+
+    q_place = sh.to_placements(mesh, sh._prune_spec(mesh, tuple(q.shape), qs))
+    ql, kl, vl = local(q, qs), local(k_cache, ks), local(v_cache, ks)
+    cl = local(cache_positions, ks[:2])
+    pl = local(positions, ks[:1])
+    bl, hl = ql.shape[0], ql.shape[2]
+    logits = _decode_logits(ql, kl, cl, pl, window)
+    if branch != "decode_sequence" or msize == 1:
+        probs = _softmax(logits).to(ql.dtype)
+        out = einsum("bkgqw,bwkd->bqkgd", probs, vl)
+    else:
+        group = mesh.get_group("model")
+        m = logits.amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m)
+        total = e.sum(dim=-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        probs = (e / total).to(ql.dtype)
+        out = torch.einsum("bkgqw,bwkd->bqkgd", probs.float(), vl.float())
+        dist.all_reduce(out, group=group)
+        out = out.to(ql.dtype)
+    return DTensor.from_local(out.reshape(bl, 1, hl, dh), mesh, q_place)
 
 
 # ---------------------------------------------------------------------------
@@ -378,22 +478,45 @@ def moe(x: Tensor, p, cfg: ArchConfig) -> Tensor:
     summed in ascending expert order, one rounding to x's type per
     addition: the order of the reference's scatter-add, which sorts the
     assignments by expert (``index_add_`` on the card would add in any
-    order). Nothing here synchronizes the host. The mesh branch
-    (``_moe_shard_map``) comes with ``dist/`` (ROADMAP Queue 1)."""
-    b, s, d = x.shape
+    order). Nothing here synchronizes the host. Under ``moe_ep`` on a
+    mesh whose data-parallel size exceeds 1 and divides the batch it is
+    ``_moe_expert_parallel``, as the reference takes its
+    ``_moe_shard_map``."""
+    b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     cap = max(k, int(math.ceil(s * k * cfg.capacity_factor / e)))
     dt = x.dtype
+    mesh = sh.active_mesh()
+    if (sh.OPTS["moe_ep"] and mesh is not None and _dp_size(mesh) > 1
+            and b % _dp_size(mesh) == 0):
+        return _moe_expert_parallel(x, p, cfg, cap, mesh)
+    top_p, top_e = _route(x, p["router"], k)
+    w3 = p["w3"].to(dt) if cfg.act == "swiglu" else None
+    return _experts(x, top_p, top_e, p["w1"].to(dt), p["w2"].to(dt), w3,
+                    cfg, cap)
 
-    probs = _softmax(x.float() @ p["router"].float())           # (B, S, E)
+
+def _route(x: Tensor, router: Tensor, k: int):
+    """(top_p, top_e) (B, S, k): the float32 router's softmax, its top k
+    renormalised, each token's choices in ascending expert order (the
+    same slots, as an expert's assignments keep their token order, and
+    the reference's order of summation)."""
+    probs = _softmax(x.float() @ router.float())                # (B, S, E)
     top_p, top_e = top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-    # each token's choices in ascending expert order: the same slots
-    # (an expert's assignments keep their token order) and the
-    # reference's order of summation
     top_e, perm = torch.sort(top_e, dim=-1)
-    top_p = top_p.gather(-1, perm)
+    return top_p.gather(-1, perm), top_e
 
+
+def _experts(x: Tensor, top_p: Tensor, top_e: Tensor, w1: Tensor,
+             w2: Tensor, w3: Optional[Tensor], cfg: ArchConfig,
+             cap: int) -> Tensor:
+    """Dispatch, the expert MLPs over (E, D, F) w1 / w3 and (E, F, D) w2
+    in x's type (or an F slice of them: the result is then that slice's
+    share of the sum over F), and the combine."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    dt = x.dtype
     order, slot, keep = _routing_indices(top_e, cap, e)
     # back from sorted order to the (token, choice) layout
     slot = torch.empty_like(slot).scatter_(1, order, slot)
@@ -406,15 +529,14 @@ def moe(x: Tensor, p, cfg: ArchConfig) -> Tensor:
     xe.scatter_(1, slot[..., None].expand(b, a, d), vals)       # (B, A) rows
     xe = xe[:, :-1].reshape(b, e, cap, d)
 
-    w1 = p["w1"].to(dt)
     g = einsum("becd,edf->becf", xe, w1)
     if cfg.act == "swiglu":
-        h = silu(g) * einsum("becd,edf->becf", xe, p["w3"].to(dt))
+        h = silu(g) * einsum("becd,edf->becf", xe, w3)
     elif cfg.act == "relu2":
         h = torch.square(torch.relu(g))
     else:
         h = gelu_tanh(g)
-    ye = einsum("becf,efd->becd", h, p["w2"].to(dt)).reshape(b, e * cap, d)
+    ye = einsum("becf,efd->becd", h, w2).reshape(b, e * cap, d)
 
     ya = ye.gather(1, torch.clamp(slot, max=e * cap - 1)[..., None]
                    .expand(b, a, d))
@@ -425,6 +547,59 @@ def moe(x: Tensor, p, cfg: ArchConfig) -> Tensor:
     for j in range(1, k):
         out = out + ya[:, :, j]
     return out
+
+
+def _dp_size(mesh) -> int:
+    return (sh._mesh_axis_size(mesh, "data")
+            * sh._mesh_axis_size(mesh, "pod"))
+
+
+def _moe_expert_parallel(x, p, cfg: ArchConfig, cap: int, mesh):
+    """The MoE block with explicit collectives on local tensors, the
+    reference's ``_moe_shard_map``: batch rows local to each dp shard;
+    expert weights stored 2-D sharded ((None, 'data', 'model') for w1 /
+    w3, (None, 'model', 'data') for w2), all-gathered over 'data' and
+    then cast to the compute type (the gathered copy is still d_ff-
+    sharded over 'model'); routing and dispatch on the rank's rows; each
+    rank computes its d_ff slice of every expert and combines it
+    locally (the combine is linear); one all-reduce over 'model' sums
+    the slices. Differentiable: the gather's gradient is a
+    reduce-scatter, the all-reduce's the identity (its result is
+    replicated over 'model')."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dt = x.dtype
+    names = sh.axis_names(mesh)
+    rows = sh.to_placements(mesh, sh._prune_spec(
+        mesh, tuple(x.shape), (sh._dp_for(mesh, x.shape[0]), None, None)))
+
+    def partial_grads(place, model: bool):
+        # a rank's gradient is its share over the dims its rows split,
+        # and over 'model' where it holds an F slice of the sum
+        return [Partial() if isinstance(pl, Replicate) and (
+            rl == Shard(0) or (model and n == "model")) else pl
+            for pl, rl, n in zip(place, rows, names)]
+
+    xl = sh.to_local(x, mesh, rows, partial_grads(rows, True))
+
+    def weight(name: str, spec, dim: int) -> Tensor:
+        t = p[name]
+        pruned = sh._prune_spec(mesh, tuple(t.shape), spec)
+        place = sh.to_placements(mesh, pruned)
+        local = sh.to_local(t, mesh, place, partial_grads(place, False))
+        if pruned[dim] == "data":
+            local = sh.gather_local(local, "data", dim, mesh)
+        return local.to(dt)
+
+    w_in, w_out = (None, "data", "model"), (None, "model", "data")
+    w1, w2 = weight("w1", w_in, 1), weight("w2", w_out, 2)
+    w3 = weight("w3", w_in, 1) if cfg.act == "swiglu" else None
+    router = sh.to_local(p["router"], mesh, [Replicate()] * mesh.ndim,
+                         partial_grads([Replicate()] * mesh.ndim, True))
+    top_p, top_e = _route(xl, router, cfg.moe_top_k)
+    out = _experts(xl, top_p, top_e, w1, w2, w3, cfg, cap)
+    sh.COUNTS["moe_expert_parallel"] += 1
+    return DTensor.from_local(sh.all_reduce_sum(out, mesh, "model"), mesh,
+                              rows)
 
 
 # ---------------------------------------------------------------------------

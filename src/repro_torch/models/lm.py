@@ -11,8 +11,9 @@ One parameter schema and five entry points, as in the reference:
 
 The reference stacks the layers on a leading L axis and runs them with
 ``lax.scan``; here ``Params.layers`` is an ``nn.ModuleList`` and a Python
-loop runs it. The reference's sharding constraints are no-ops without a
-mesh and are left out: ``dist/`` brings placement back (ROADMAP Queue 1).
+loop runs it. The reference's sharding constraints (``constrain_*``)
+sit at its call sites, ``redistribute`` of placed (DTensor) tensors
+under ``dist.shardings.use_mesh`` and no-ops otherwise.
 ``decode_step`` writes the cache in place (the reference returns a new
 one). The encoder-decoder family takes the encoder's input as
 ``enc_embeds`` (B, F, D), stubbed frame embeddings, as the reference
@@ -38,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 
@@ -249,13 +251,18 @@ def _attention_mixer(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_src is None else kv_src
-    q = L.matmul(x, p["wq"]).reshape(b, s, h, dh)
-    k = L.matmul(src, p["wk"]).reshape(b, src.shape[1], kv, dh)
-    v = L.matmul(src, p["wv"]).reshape(b, src.shape[1], kv, dh)
+    q = sh.whole_heads(L.matmul(x, p["wq"]), h).reshape(b, s, h, dh)
+    k = sh.whole_heads(L.matmul(src, p["wk"]), kv).reshape(
+        b, src.shape[1], kv, dh)
+    v = sh.whole_heads(L.matmul(src, p["wv"]), kv).reshape(
+        b, src.shape[1], kv, dh)
     if kv_src is None:
         q = L.apply_rope(q, positions, cfg)
         k = L.apply_rope(k, positions, cfg)
-    out = L.attention(q, k, v, causal=causal, window=window)
+    q = sh.constrain_heads(q)
+    k = sh.constrain_heads(k)
+    out = sh.constrain_heads(L.attention(q, k, v, causal=causal,
+                                         window=window))
     y = L.matmul(out.reshape(b, s, h * dh), p["wo"])
     return y, (k, v)
 
@@ -271,7 +278,7 @@ def _dec_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
         y, states = M.mamba_forward(hin, p["mamba"], cfg, return_state=True)
         if collect_kv:
             aux.update(states)
-        return x + y, aux
+        return sh.constrain_hidden(x + y), aux
     a_out, (k, v) = _attention_mixer(cfg, p["attn"], hin, positions,
                                      window=cfg.window)
     if cfg.family == "hybrid":
@@ -290,7 +297,8 @@ def _dec_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor,
         hc = L.rms_norm(x, p["ln_cross"], eps)
         x = x + _attention_mixer(cfg, p["cross"], hc, positions,
                                  kv_src=enc_out, causal=False)[0]
-    return x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], eps)), aux
+    x = x + _ffn(cfg, p, L.rms_norm(x, p["ln2"], eps))
+    return sh.constrain_hidden(x), aux
 
 
 def _ffn(cfg: ArchConfig, p, x: Tensor) -> Tensor:
@@ -305,7 +313,8 @@ def _enc_block(cfg: ArchConfig, p, x: Tensor, positions: Tensor) -> Tensor:
     hin = L.rms_norm(x, p["ln1"], eps)
     x = x + _attention_mixer(cfg, p["attn"], hin, positions,
                              causal=False)[0]
-    return x + L.mlp(L.rms_norm(x, p["ln2"], eps), p["mlp"], cfg)
+    x = x + L.mlp(L.rms_norm(x, p["ln2"], eps), p["mlp"], cfg)
+    return sh.constrain_hidden(x)
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +355,8 @@ def forward(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
     nothing."""
     _require_supported(cfg)
     dt = L.cdtype(cfg)
-    x = (frames.to(dt) if frames is not None
-         else params["embed"].to(dt)[tokens])
+    x = sh.constrain_hidden(frames.to(dt) if frames is not None else
+                            params["embed"].to(dt)[sh.one_axis_a_dim(tokens)])
     positions = torch.arange(x.shape[1], device=x.device)
     enc_out = None
     if cfg.is_encdec:
@@ -370,6 +379,21 @@ def forward(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
 def logits_head(cfg: ArchConfig, params: Params, hidden: Tensor) -> Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return L.matmul(hidden, head)
+
+
+def _gold(logits: Tensor, labels: Tensor) -> Tensor:
+    """Each row's logit of its label. Placed, each rank gathers from its
+    own rows of the logits with the vocab whole (DTensor's gather cannot
+    select one column a row over a sharded vocab)."""
+    if not sh.is_placed(logits):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor
+    mesh = logits.device_mesh
+    rows = sh.to_placements(mesh, sh._prune_spec(
+        mesh, tuple(labels.shape), (sh.batch_axes(), None)))
+    gold = sh.to_local(logits, mesh, rows).gather(
+        -1, sh.to_local(labels, mesh, rows)[..., None])[..., 0]
+    return DTensor.from_local(gold, mesh, rows)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, hidden: Tensor,
@@ -398,11 +422,11 @@ def lm_loss(cfg: ArchConfig, params: Params, hidden: Tensor,
     for c in range(s // chunk):
         hk = hidden[:, c * chunk:(c + 1) * chunk]
         lk = labels[:, c * chunk:(c + 1) * chunk].long()
-        logits = L.matmul(hk, head).float()
+        logits = sh.constrain_logits(L.matmul(hk, head).float())
         if pad is not None:
             logits = logits + pad
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lk[..., None])[..., 0]
+        gold = _gold(logits, lk)
         total = total + torch.sum(lse - gold)
     return total / torch.full((), b * s, dtype=torch.float32, device=dev)
 
@@ -448,21 +472,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 # Decode step
 # ---------------------------------------------------------------------------
 
+def _ring_hit(w: int, slot: Tensor) -> Tensor:
+    """(B, W): each row's ring slot ``slot``."""
+    return torch.arange(w, device=slot.device) == slot[:, None]
+
+
 def _attn_step(cfg: ArchConfig, p, x: Tensor, kc: Tensor, vc: Tensor,
                positions: Tensor, slot: Tensor, cpos: Tensor) -> Tensor:
     """One token's attention; writes its K, V into ring slot ``slot`` of
     the layer's caches kc, vc (B, W, KV, dh) in place (the reference's
-    one-hot blend gives the same values)."""
+    one-hot blend gives the same values, and is what a placed cache
+    takes: DTensor has no in-place indexed write into a sharded
+    ring)."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L.matmul(x, p["wq"]).reshape(b, 1, h, dh)
-    k1 = L.matmul(x, p["wk"]).reshape(b, 1, kv, dh)
-    v1 = L.matmul(x, p["wv"]).reshape(b, 1, kv, dh)
+    q = sh.whole_heads(L.matmul(x, p["wq"]), h).reshape(b, 1, h, dh)
+    k1 = sh.whole_heads(L.matmul(x, p["wk"]), kv).reshape(b, 1, kv, dh)
+    v1 = sh.whole_heads(L.matmul(x, p["wv"]), kv).reshape(b, 1, kv, dh)
     q = L.apply_rope(q, positions[:, None], cfg)
     k1 = L.apply_rope(k1, positions[:, None], cfg)
-    rows = torch.arange(b, device=x.device)
-    kc[rows, slot] = k1[:, 0]
-    vc[rows, slot] = v1[:, 0]
+    if sh.is_placed(kc):
+        hit = _ring_hit(kc.shape[1], slot)[:, :, None, None]
+        kc.copy_(torch.where(hit, k1, kc))
+        vc.copy_(torch.where(hit, v1, vc))
+    else:
+        rows = torch.arange(b, device=x.device)
+        kc[rows, slot] = k1[:, 0]
+        vc[rows, slot] = v1[:, 0]
     out = L.decode_attention(q, kc, vc, cpos, positions, window=cfg.window)
     return L.matmul(out.reshape(b, h * dh), p["wo"])
 
@@ -508,13 +544,18 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Tensor],
     """One decode step. tokens: (B, 1); positions: (B,). Returns
     (logits (B, Vp), cache), the cache updated in place."""
     _require_supported(cfg)
-    x = params["embed"].to(L.cdtype(cfg))[tokens[:, 0]]       # (B, D)
+    x = sh.constraint(params["embed"].to(L.cdtype(cfg))[
+        sh.one_axis_a_dim(tokens)[:, 0]], sh.batch_axes(), None)  # (B, D)
     slot = cpos = None
     if cfg.family != "ssm":
         cpos = cache["positions"]
         slot = positions % cpos.shape[1]
-        cpos[torch.arange(x.shape[0], device=x.device), slot] = \
-            positions.to(cpos.dtype)
+        if sh.is_placed(cpos):
+            cpos.copy_(torch.where(_ring_hit(cpos.shape[1], slot),
+                                   positions[:, None].to(cpos.dtype), cpos))
+        else:
+            cpos[torch.arange(x.shape[0], device=x.device), slot] = \
+                positions.to(cpos.dtype)
     for i, lp in enumerate(params.layers):
         x = _dec_block_step(cfg, lp, x, cache, i, positions, slot, cpos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -524,6 +565,17 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Tensor],
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
+
+def _ring_gather(k: Tensor, pos: Tensor, w: int) -> Tensor:
+    """The ring (L, B, W, KV, dh) of the kept positions ``pos`` of a
+    placed stack k (L, B, S, KV, dh), read slot by slot (DTensor has no
+    indexed write into a placed ring); empty slots are zero."""
+    src = torch.full((w,), -1, dtype=torch.long, device=pos.device)
+    src[pos % w] = pos
+    ring = k.index_select(2, torch.clamp(src, min=0))
+    return torch.where((src >= 0)[:, None, None], ring,
+                       torch.zeros((), dtype=k.dtype, device=k.device))
+
 
 def prefill(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
             frames: Optional[Tensor] = None,
@@ -546,10 +598,13 @@ def prefill(cfg: ArchConfig, params: Params, tokens: Optional[Tensor] = None,
         keep = min(s, w)
         pos = torch.arange(s - keep, s, device=k.device)
         slots = pos % w
-        kr = k.new_zeros(k.shape[:2] + (w,) + k.shape[3:])
-        vr = torch.zeros_like(kr)
-        kr[:, :, slots] = k[:, :, s - keep:]
-        vr[:, :, slots] = v[:, :, s - keep:]
+        if sh.is_placed(k):
+            kr, vr = _ring_gather(k, pos, w), _ring_gather(v, pos, w)
+        else:
+            kr = k.new_zeros(k.shape[:2] + (w,) + k.shape[3:])
+            vr = torch.zeros_like(kr)
+            kr[:, :, slots] = k[:, :, s - keep:]
+            vr[:, :, slots] = v[:, :, s - keep:]
         cpos = torch.full((b, w), -1, dtype=torch.int32, device=k.device)
         cpos[:, slots] = pos.to(torch.int32)
         cache["k"], cache["v"], cache["positions"] = kr, vr, cpos

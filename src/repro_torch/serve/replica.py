@@ -16,9 +16,10 @@ another replica on a result nobody can use.
 Replicas are data-parallel copies of the serving function. In the port
 each one is its own ``LogicEngine`` on one resolved device: on a card,
 independent engines (own synthesized netlist, own plan tensors) that
-the scheduler's one dispatch thread drives in turn. The reference's
-mesh placement (``mesh_placed``, a no-op without a mesh) waits for the
-port of ``repro.dist``.
+the scheduler's one dispatch thread drives in turn. With a mesh,
+``mesh_placed`` splits each batch over the mesh's data-parallel ranks
+(every rank calls it on the same batch, as processes of one program
+do).
 """
 from __future__ import annotations
 
@@ -192,30 +193,63 @@ class ReplicaSet:
 
 
 # ---------------------------------------------------------------------------
-# logic-engine replicas
+# dist-placed logic-engine replicas
 # ---------------------------------------------------------------------------
+
+def mesh_placed(fn: Callable, mesh) -> Callable:
+    """Wrap an executor so its batch is split by the ``repro_torch.dist``
+    batch rule (``batch_shardings``: rows over the widest data-parallel
+    axes that divide the batch) before evaluation; ``fn`` itself
+    without a mesh.
+
+    The reference places one array on a mesh of one program's devices.
+    Here each device is a process: every rank calls the wrapper on the
+    same batch, evaluates its own block of rows, and an all-gather over
+    the mesh returns every row's labels on every rank."""
+    if mesh is None:
+        return fn
+
+    from repro_torch.dist import shardings
+
+    def placed(x: np.ndarray) -> np.ndarray:
+        import torch
+        from torch.distributed.tensor import DTensor
+        x = np.asarray(x)
+        sh = shardings.batch_shardings(mesh, {"x": x})["x"]
+        mine = np.asarray(fn(x[shardings.local_index(x.shape, sh)[:1]]))
+        labels = DTensor.from_local(
+            torch.from_numpy(np.ascontiguousarray(mine)).to(
+                mesh.device_type), mesh, sh.placements, run_check=False)
+        return labels.full_tensor().cpu().numpy()
+
+    placed.n_features = getattr(fn, "n_features", None)
+    if hasattr(fn, "set_tracer"):       # keep tracer wiring reachable
+        placed.set_tracer = fn.set_tracer
+    return placed
+
 
 def build_logic_replicas(net, n_classes: int, n_replicas: int = 1,
                          backend: str = "gather", max_batch: int = 256,
                          policy: str = "rr", engine: Optional[str] = None,
                          exec_seed_us: Optional[float] = None,
-                         device=None) -> ReplicaSet:
+                         device=None, mesh=None) -> ReplicaSet:
     """Data-parallel ``LogicEngine`` replicas behind one dispatch point.
 
     Each replica owns its own engine (own synthesized netlist and plan
     tensors) on ``device`` (``resolve_device``: the card unless the CPU
-    is asked for). ``engine`` selects the bitplane backend's netlist
-    executor (``LogicEngine``'s default when None). ``exec_seed_us``
-    seeds every replica's execution-time EWMA with a calibrated
-    kernelprof estimate.
+    is asked for). With a mesh, batches are split over its data-parallel
+    ranks on their way in (``mesh_placed``). ``engine`` selects the
+    bitplane backend's netlist executor (``LogicEngine``'s default when
+    None). ``exec_seed_us`` seeds every replica's execution-time EWMA
+    with a calibrated kernelprof estimate.
     """
     from repro_torch.device import resolve_device
     from repro_torch.serving.engine import LogicEngine
 
     dev = resolve_device(device)
-    fns = [LogicEngine(net, n_classes, max_batch=max_batch,
-                       backend=backend, engine=engine,
-                       device=dev).scheduler_executor()
+    fns = [mesh_placed(LogicEngine(net, n_classes, max_batch=max_batch,
+                                   backend=backend, engine=engine,
+                                   device=dev).scheduler_executor(), mesh)
            for _ in range(n_replicas)]
     return ReplicaSet(fns, policy=policy, n_features=net.n_inputs,
                       exec_seed_us=exec_seed_us)

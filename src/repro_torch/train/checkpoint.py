@@ -18,9 +18,16 @@ A tree is nested dicts (and ``Params``, read by key), lists and tuples
 (by index) and NamedTuples (by field name) of tensors, numpy arrays or
 Python scalars; ``None`` holds no leaf. Flat keys join the path with
 ``::``, as the reference's do. bfloat16 tensors are stored as their 16
-bits under the dtype name ``bfloat16``. ``restore`` reads onto the
-device of each leaf of the target tree; the reference's ``shardings=``
-(shard-by-shard reads onto a mesh) waits for the multi-device slice.
+bits under the dtype name ``bfloat16``.
+
+Placed (DTensor) leaves are saved whole, in the same format: every rank
+gathers each leaf, rank 0 writes, and the save returns after a barrier,
+so a checkpoint is committed before any rank goes on. ``restore`` reads
+onto the device of each leaf of the target tree; with ``shardings=``
+(flat key -> ``dist.shardings.Sharding``), or for a target leaf that is
+itself placed, each rank reads only its own block of the leaf from a
+memory-mapped file and the leaf comes back placed on that mesh, which
+need not be the mesh that wrote it (elastic rescale).
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.dist.shardings import Sharding, from_host, is_placed, spec_of
 
 PyTree = Any
 _SEP = "::"
@@ -83,9 +92,12 @@ def _rebuild(tree: PyTree, fn: Callable, path: Tuple[str, ...] = ()):
 
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
-    """A leaf as a host array and the dtype name the manifest records."""
+    """A leaf as a host array and the dtype name the manifest records
+    (a placed leaf gathered whole: a collective)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_placed(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16), \
                 "bfloat16"
@@ -122,10 +134,30 @@ def _write(ckpt_dir: str, step: int, flat: Dict[str, Tuple[np.ndarray, str]],
     return final
 
 
+def _placed_tree(tree: PyTree) -> bool:
+    return any(is_placed(leaf) for _, leaf in _walk(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes a placed tree: rank 0 of the group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree: PyTree,
          extra: Optional[Dict] = None) -> str:
-    """Synchronous atomic save. Returns the committed directory."""
-    return _write(ckpt_dir, step, _host_flat(tree), extra)
+    """Synchronous atomic save. Returns the committed directory. A tree
+    with placed leaves is called on every rank: rank 0 writes, and every
+    rank returns after a barrier."""
+    flat = _host_flat(tree)
+    if not _placed_tree(tree):
+        return _write(ckpt_dir, step, flat, extra)
+    import torch.distributed as dist
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        _write(ckpt_dir, step, flat, extra)
+    dist.barrier()
+    return final
 
 
 class AsyncCheckpointer:
@@ -140,8 +172,11 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: PyTree, extra=None):
         self.wait()
         # the copy to the host on the caller thread (ordered after the
-        # train step), file IO on the worker
+        # train step; placed leaves gathered on every rank), file IO on
+        # the worker of rank 0
         flat = _host_flat(tree)
+        if _placed_tree(tree) and not _writer():
+            return
 
         def work():
             self.last_path = _write(self.ckpt_dir, step, flat, extra)
@@ -178,41 +213,58 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load(path: str, meta: Dict, target):
-    """One saved leaf as the target leaf's kind: a tensor on its device,
-    a Python scalar, or a numpy array."""
-    arr = np.load(os.path.join(path, meta["file"]))
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A CPU tensor of a saved array (16-bit words for bfloat16)."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def _load(path: str, meta: Dict, target, sharding=None):
+    """One saved leaf as the target leaf's kind: a tensor on its device
+    (placed under ``sharding``, or as the target is, with only this
+    rank's block read), a Python scalar, or a numpy array."""
+    file = os.path.join(path, meta["file"])
     if isinstance(target, torch.Tensor):
-        if meta["dtype"] == "bfloat16":
-            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
-                                 .copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(arr).copy())
-        return t.to(target.device)
+        if sharding is None and is_placed(target):
+            sharding = Sharding(target.device_mesh, spec_of(target))
+        if sharding is not None:
+            return from_host(np.load(file, mmap_mode="r"), sharding,
+                             lambda block: _tensor(block, meta["dtype"]))
+        return _tensor(np.load(file), meta["dtype"]).to(target.device)
+    arr = np.load(file)
     if isinstance(target, (bool, int, float)):
         return type(target)(arr)
     return arr
 
 
-def restore(path: str, target_tree: PyTree) -> PyTree:
+def restore(path: str, target_tree: PyTree,
+            shardings: Optional[Dict] = None) -> PyTree:
     """The checkpoint at ``path`` in the structure of ``target_tree``
-    (mappings as dicts); raises KeyError for a leaf it lacks."""
+    (mappings as dicts); raises KeyError for a leaf it lacks.
+    ``shardings``: flat key -> ``Sharding`` for leaves to place on a
+    mesh (e.g. ``dist.shardings.params_shardings(mesh, params)`` for a
+    ``Params`` target)."""
     with open(os.path.join(path, "manifest.json")) as f:
         leaves = json.load(f)["leaves"]
+    shardings = shardings or {}
 
     def load(key, target):
         if key not in leaves:
             raise KeyError(f"checkpoint missing leaf {key}")
-        return _load(path, leaves[key], target)
+        return _load(path, leaves[key], target, shardings.get(key))
 
     return _rebuild(target_tree, load)
 
 
-def restore_latest(ckpt_dir: str, target_tree: PyTree) -> Optional[PyTree]:
+def restore_latest(ckpt_dir: str, target_tree: PyTree,
+                   shardings: Optional[Dict] = None) -> Optional[PyTree]:
     s = latest_step(ckpt_dir)
     if s is None:
         return None
-    return restore(os.path.join(ckpt_dir, f"step_{s:08d}"), target_tree)
+    return restore(os.path.join(ckpt_dir, f"step_{s:08d}"), target_tree,
+                   shardings)
 
 
 @torch.no_grad()

@@ -15,8 +15,12 @@ The ``Trainer`` resumes from the latest committed checkpoint, saves
 asynchronously every ``ckpt_every`` steps, saves synchronously on any
 exception before re-raising, and flags stragglers with
 ``StepWatchdog``. On the card the step time ends in a synchronize (the
-reference blocks on the loss). Placement over several devices waits for
-the multi-device slice.
+reference blocks on the loss).
+
+Placed (DTensor) parameters train the same way under
+``dist.shardings.use_mesh``: each leaf's gradient comes back with its
+parameter's placements, the optimizer steps each shard in place, and
+the metrics are whole (replicated) values.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import compress as C
 from repro_torch.dist.fault import StepWatchdog, retry_step
+from repro_torch.dist.shardings import full, is_placed
 from repro_torch.models import lm
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import AdamW, AdamWState, global_norm
@@ -56,10 +61,11 @@ def _loss(cfg: ArchConfig, params: lm.Params, batch: Dict[str, Tensor]
 
 def _grads(loss: Tensor, leaves: List[Tensor]) -> List[Tensor]:
     """d loss / d leaf for every leaf (zeros for a leaf it does not
-    read)."""
+    read); a placed leaf's gradient redistributed to its placements."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)]
+    return [torch.zeros_like(p) if g is None else
+            g.redistribute(p.device_mesh, p.placements) if is_placed(g)
+            else g for p, g in zip(leaves, grads)]
 
 
 def loss_and_grads(cfg: ArchConfig, params: lm.Params,
@@ -83,8 +89,7 @@ def loss_and_grads(cfg: ArchConfig, params: lm.Params,
                  for k, v in batch.items()}
         dev = leaves[0].device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                 for p in leaves]
+        g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in range(n):
             loss = _loss(cfg, params, {k: v[i] for k, v in micro.items()})
             for acc, g in zip(g_sum, _grads(loss, leaves)):
@@ -113,7 +118,8 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
         gnorm = global_norm(grads)
         opt = optimizer.update(grads, state.opt, lm.leaves(state.params),
                                lm.reference_ndims(state.params))
-        metrics = {"loss": loss, "grad_norm": gnorm, "step": opt.step}
+        metrics = {"loss": full(loss), "grad_norm": full(gnorm),
+                   "step": opt.step}
         return TrainState(state.params, opt, ef), metrics
 
     return train_step

@@ -9,7 +9,8 @@ eps is added after the bias corrections:
     p <- p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)
 
 ``update`` changes the parameters and the moments in place, leaf by
-leaf (one leaf's temporaries at a time), and returns the new state,
+leaf (one leaf's temporaries at a time; on placed leaves, shard by
+shard, with the clip's norm the unsharded one), and returns the new state,
 which holds the step count and the moments, in the parameters' order.
 With ``mixed_precision`` the state also holds a float32 ``master`` copy
 that the rule steps, and the live parameters become its bf16 cast
@@ -23,16 +24,21 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.dist.shardings import is_placed
+
 Tensor = torch.Tensor
 LR = Union[float, Callable[[int], object]]
 
 
 def global_norm(tensors: Sequence[Tensor]) -> Tensor:
     """sqrt of the sum of squares of every element, summed tensor by
-    tensor in the given order (float32)."""
+    tensor in the given order (float32). A placed (DTensor) tensor's sum
+    is over all its shards, so the norm is the unsharded one on every
+    rank."""
     acc = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
     for t in tensors:
-        acc = acc + torch.sum(torch.square(t.float()))
+        sq = torch.sum(torch.square(t.float()))
+        acc = acc + (sq.full_tensor() if is_placed(sq) else sq)
     return torch.sqrt(acc)
 
 
@@ -78,8 +84,8 @@ class AdamW:
     mixed_precision: bool = False
 
     def init(self, params: Sequence[Tensor]) -> AdamWState:
-        def z(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def z(p):   # placed like p
+            return torch.zeros_like(p, dtype=torch.float32)
         master = ([p.detach().float().clone() for p in params]
                   if self.mixed_precision else None)
         return AdamWState(0, [z(p) for p in params], [z(p) for p in params],

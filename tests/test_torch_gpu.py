@@ -1154,3 +1154,105 @@ def test_entry_points_without_a_card_raise():
     aig.outputs = [aig.and2(2, 4)]
     with pytest.raises(NoCudaDeviceError):
         synth.simulate(aig, synth.random_words(2, 1), use_kernel=True)
+
+
+# ---------------------------------------------------------------------------
+# Placement on the card (repro_torch.dist): world 1 over NCCL, and two
+# ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+DIST_TOL = 1e-5        # placed against unplaced, float32
+
+
+def _dist_jobs(shape):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import checks
+    from repro_torch.models import lm
+    rng = np.random.default_rng(1)
+
+    def cfg(name, **kw):
+        return dataclasses.replace(get_arch(name, smoke=True),
+                                   compute_dtype="float32", **kw)
+
+    def params(c):
+        return checks.stacked_numpy(lm.init_params(
+            c, torch.Generator().manual_seed(0)))
+
+    glm, glm4, phi = cfg("glm4-9b"), cfg("glm4-9b", n_layers=4), \
+        cfg("phi4-mini-3.8b")
+    return [("fsdp", "fsdp", dict(cfg=phi, params_np=params(phi),
+                                  toks_np=rng.integers(0, 512, (8, 64)).astype(
+                                      np.int32), shape=shape,
+                                  device="cuda")),
+            ("decode", "decode", dict(cfg=glm, params_np=params(glm),
+                                      toks_np=rng.integers(0, 512, (4, 33))
+                                      .astype(np.int32), shape=shape,
+                                      device="cuda", prompt=32, max_seq=40)),
+            ("pipeline", "pipeline", dict(cfg=glm4, params_np=params(glm4),
+                                          toks_np=rng.integers(
+                                              0, 512, (4, 32)).astype(
+                                              np.int32), shape=shape,
+                                          device="cuda"))]
+
+
+def _dist_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def test_dist_checks_at_world_one_on_card(cuda_device):
+    """fsdp_pure, serve_tp_only decode and the pipeline on a (1, 1) mesh
+    over NCCL: placed within DIST_TOL of unplaced, TF32 off."""
+    from repro_torch.dist import checks, world
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (res,) = world.run(checks.run_checks, 1, (_dist_jobs((1, 1)),),
+                           backend="nccl", device="cuda", timeout=300)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for label, r in res.items():
+        assert "error" not in r, r["error"]
+        if label == "fsdp":
+            pairs = list(zip(r["placed"][2], r["unplaced"][2])) + [
+                (r["placed"][i], r["unplaced"][i]) for i in (0, 1)]
+        else:
+            pairs = [(r["placed"], r["unplaced"])] + list(zip(
+                r.get("grads_placed", []), r.get("grads_unplaced", [])))
+        assert max(_dist_err(a, b) for a, b in pairs) <= DIST_TOL, label
+    assert res["decode"]["counts"].get("decode_heads", 0) > 0
+
+
+def test_dist_pipeline_two_ranks_share_the_card(cuda_device):
+    """GPipe over two stages with both ranks on one card (gloo): hidden
+    states and gradients within DIST_TOL of the unplaced forward."""
+    from repro_torch.dist import checks, world
+    job = [j for j in _dist_jobs((1, 2)) if j[0] == "pipeline"]
+    for res in world.run(checks.run_checks, 2, (job,), backend="gloo",
+                         device="cuda", timeout=300):
+        r = res["pipeline"]
+        assert "error" not in r, r["error"]
+        assert r["counts"] == {"pipeline": 1}
+        for a, b in [(r["placed"], r["unplaced"])] + list(zip(
+                r["grads_placed"], r["grads_unplaced"])):
+            assert _dist_err(a, b) <= DIST_TOL
+
+
+def test_launcher_model_par_1_on_card_matches_unplaced(cuda_device):
+    """``launch.train --model-par 1`` (NCCL world 1) against the
+    launcher without a mesh flag, glm4 smoke, three steps."""
+    from repro_torch.dist import checks, world
+    from repro_torch.launch.train import main
+    argv = ["--arch", "glm4-9b", "--smoke", "--steps", "3", "--batch", "4",
+            "--seq", "64", "--log-every", "1"]
+    want = main(list(argv))
+    (res,) = world.run(checks.run_checks, 1, ([(
+        "launch", "launcher", {"argv": argv + ["--model-par", "1"]})],),
+        backend="nccl", device="cuda", timeout=300)
+    got = res["launch"]
+    assert "error" not in got, got["error"]
+    for key in ("loss", "grad_norm"):
+        assert abs(got[key] - want[key]) <= 4 * 2.0 ** -7 * max(
+            1.0, abs(want[key])), (key, got[key], want[key])

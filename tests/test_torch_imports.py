@@ -71,7 +71,13 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.dist.compress",
                                     "repro_torch.dist.fault",
                                     "repro_torch.launch.train",
-                                    "repro_torch.examples.train_lm_qat"])
+                                    "repro_torch.examples.train_lm_qat",
+                                    "repro_torch.dist",
+                                    "repro_torch.dist.shardings",
+                                    "repro_torch.dist.pipeline",
+                                    "repro_torch.dist.checks",
+                                    "repro_torch.dist.world",
+                                    "repro_torch.launch.mesh"])
 def test_training_modules_import_without_jax(module):
     """Each module of the training, serving-at-scale, verification,
     benchmark and LM slices, alone in a fresh interpreter, leaves JAX
@@ -167,3 +173,23 @@ def _tiny_mapped():
     aig = synth.AIG(3)
     aig.outputs = [aig.and2(synth.lit(1), synth.lit(2) ^ 1)]
     return synth.synthesize(aig)
+
+
+def test_mesh_entry_points_default_to_cuda():
+    """The mesh makers and the launcher's mesh flags take the card
+    unless the CPU is asked for: without one they raise before any
+    process group is made."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import torch.distributed as dist
+    from repro_torch.device import NoCudaDeviceError
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.train import main
+    with pytest.raises(NoCudaDeviceError):
+        make_host_mesh()
+    with pytest.raises(NoCudaDeviceError):
+        make_production_mesh(multi_pod=True)
+    for flags in (["--model-par", "1"], ["--production-mesh"]):
+        with pytest.raises(NoCudaDeviceError):
+            main(["--arch", "glm4-9b", "--smoke", "--steps", "1"] + flags)
+    assert not dist.is_initialized()
