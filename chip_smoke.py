@@ -228,6 +228,28 @@ Phases, each printing its own lines:
                 and rows 7h / 7i of the kernels line (the forward with
                 its log-sum-exp and the backward at glm4-9b's training
                 shape, beside SDPA).
+  16. dist    — the placed paths: glm4-9b (4 of 40 layers) through the
+                launcher unplaced and at ``--model-par 1`` (NCCL world
+                1), decode under serve_tp_only, the pipeline at one
+                stage, a placed checkpoint, the smoke checks at (1, 1),
+                GPipe on two ranks sharing the card over gloo with every
+                layer on each rank and with each rank holding only its
+                stage (``stage_params``), flash at the TP-local shape;
+  17. logic_head — the ``logic_head`` example twin on hymba-1.5b's
+                smoke config and at its full width (bf16 weights), each
+                from launch counts at 0: pooled features through the
+                flash kernel, the head trained with ``train_jsc`` and
+                compiled to logic, the network on lut_layer bit-exact
+                with the head's argmax; the smoke run's accuracy, LUTs
+                and FFs held to the reference's CPU run within the
+                twin's bands; features a second, accuracy and LUTs;
+  18. dryrun  — the dry run under this machine's torch, each in a
+                process of its own with the card hidden: glm4-9b
+                train_4k, mixtral-8x22b decode_32k and
+                seamless-m4t-large-v2 prefill_32k on (16, 16), glm4-9b
+                decode_32k on (2, 16, 16), and the pipeline twin; each
+                ``ok`` with FLOPs above 0 and argument bytes equal to the
+                rule table's shards; roofline rows at the H100's rates.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -2747,6 +2769,38 @@ def check_attention(errs, name, q, k, v, kw, what):
     return got
 
 
+def check_attention_exact(q, k, v, kw, what):
+    """The flash kernel against its plain version in float64
+    (``attention_ref`` on the same q, k, v values, upcast): within
+    LM_KERNEL_TOL, and no farther from it than the plain versions in
+    q's type, ``attention_ref`` and ``full_attention``. For bf16 outputs
+    of magnitude 1 to 4 (hymba's), two bf16 roundings of one value can
+    differ by more than LM_KERNEL_TOL, so the float64 value is the one
+    every version is held to. Returns each version's max abs error."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers as L
+    exact = attention_ref(q.double(), k.double(), v.double(), **kw)
+    outs = {"flash": flash_attention(q, k, v, **kw),
+            "attention_ref": attention_ref(q, k, v, **kw),
+            "full_attention": L.full_attention(q, k, v, **kw)}
+    errs = {}
+    for name, out in outs.items():
+        require(out.shape == exact.shape and out.dtype == q.dtype,
+                f"{what}: {name} gave {tuple(out.shape)} {out.dtype}")
+        errs[name] = float((out.double() - exact).abs().max())
+        require(math.isfinite(errs[name]), f"{what}: {name} not finite")
+    require(errs["flash"] <= LM_KERNEL_TOL,
+            f"{what}: flash_attention {errs['flash']} from the float64 "
+            f"attention, above {LM_KERNEL_TOL}")
+    for name in ("attention_ref", "full_attention"):
+        require(errs["flash"] <= errs[name],
+                f"{what}: flash_attention {errs['flash']} from the float64 "
+                f"attention, farther than {name} in {q.dtype} "
+                f"({errs[name]})")
+    return errs
+
+
 def phase_lm(torch, card, errs):
     """The LM serving path on the card: glm4-9b at full width through
     ``LMEngine`` (the flash kernel one launch a layer per prefill, from
@@ -3626,8 +3680,9 @@ def phase_dist(torch, card):
     check's placed prefill too). (f) Two ranks
     on the one card over gloo (NCCL refuses a second rank on a card it
     already has): the GPipe check at two stages, forward and gradient,
-    within DIST_TOL; DTensor's own collectives do not run there (see
-    PERF.md). (g) The flash forward with its log-sum-exp and the
+    within DIST_TOL, with every layer on each rank and with each rank
+    holding only its stage's layers (``pipeline_stages``); DTensor's own
+    collectives do not run there (see PERF.md). (g) The flash forward with its log-sum-exp and the
     backward at the local shape of glm4-9b at --model-par 2 (H 16, KV 1)
     against their plain versions."""
     import gc
@@ -3846,24 +3901,39 @@ def phase_dist(torch, card):
           f"unplaced (max |diff| / max(1, max |unplaced|)): "
           + "; ".join(texts))
 
-    # (f) two ranks on the one card: gloo, the GPipe check at two stages
+    # (f) two ranks on the one card: gloo, the GPipe check at two stages,
+    # with every layer on every rank and with each rank's own stage only
     t0 = time.perf_counter()
-    two = world.run(checks.run_checks, 2, ([pipe_job],), backend="gloo",
-                    device="cuda", timeout=300)
-    e2 = []
-    for rank, r in enumerate(two):
-        r = r["pipeline"]
+    stage_job = ("pipeline_stages", "pipeline_stages", pipe_job[2])
+    two = world.run(checks.run_checks, 2, ([pipe_job, stage_job],),
+                    backend="gloo", device="cuda", timeout=300)
+    e2, e_staged, held = [], [], []
+    for rank, res2 in enumerate(two):
+        r = res2["pipeline"]
         require("error" not in r, f"dist two ranks:\n{r.get('error')}")
         require(r["counts"].get("pipeline") == 1,
                 f"dist two ranks: {r['counts']}")
         e2.append(max([close("pipeline x2", r["placed"], r["unplaced"])]
                       + [close("pipeline x2", a, b) for a, b in zip(
                           r["grads_placed"], r["grads_unplaced"])]))
+        r = res2["pipeline_stages"]
+        require("error" not in r, f"dist two ranks, staged:\n"
+                f"{r.get('error')}")
+        e_staged.append(max(
+            [close("pipeline stages x2", r["placed"], r["unplaced"])]
+            + [close("pipeline stages x2", g, r["grads_unplaced"][n])
+               for n, g in r["grads_placed"].items()]))
+        held += r["layers_held"]
+    require(sorted(held) == [0, 1, 2, 3], f"dist two ranks, staged: "
+            f"layers held {held}")
     print(f"[dist] two ranks on one card (gloo; NCCL refuses a second rank "
           f"on a card): GPipe over 2 stages, 2 microbatches, glm4 smoke at "
           f"4 layers, float32: hidden states and every gradient leaf within "
-          f"{max(e2):.3g} of the unplaced forward on each rank "
-          f"({time.perf_counter() - t0:.1f}s with the ranks' start)")
+          f"{max(e2):.3g} of the unplaced forward on each rank; with each "
+          f"rank holding only its stage's 2 layers (stage_params), hidden "
+          f"states and the gradient of every leaf it holds within "
+          f"{max(e_staged):.3g} ({time.perf_counter() - t0:.1f}s with the "
+          f"ranks' start)")
 
     # (g) flash at glm4-9b's local shape at --model-par 2
     b_, s_, h_, kv_, dh_ = TP_LOCAL
@@ -3892,6 +3962,207 @@ def phase_dist(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[dist] phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def phase_logic_head(torch, card):
+    """The ``logic_head`` example twin on the card, from launch counts at
+    0: hymba-1.5b's smoke config (seed 0), then its full width (seed 0,
+    the weight matrices cast to bf16 as ``LMEngine`` serves it). Each
+    run's prefill attention launches flash_attention once a layer a
+    forward of ``logic_head.BATCH`` sequences, its logic network lut_layer
+    once a head layer; the head's argmax and the network's are equal on
+    the test rows. The smoke run's accuracy, LUTs and FFs are those of
+    the reference's own CPU run within the twin's bands
+    (``logic_head.within_reference_bands``). After each run, with the
+    counts read, both kernels are held against their plain versions at
+    the path's shapes: flash on the first forward's recorded q, k, v
+    (``check_attention_exact``); and the logic network's output codes on
+    the test rows, every code, equal between lut_layer and the plain
+    gather."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import logic_head as LH
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    n_forwards = -(-(LH.N_TRAIN + LH.N_TEST) // LH.BATCH)
+    for label, smoke in (("smoke", True), ("full width", False)):
+        cfg = get_arch("hymba-1.5b", smoke=smoke)
+        params = lm.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0))
+        if not smoke:
+            lm.cast_weights_(cfg, params)
+        reset_launch_counts()
+        with record_attention(L) as (seen, calls):
+            out = LH.run(cfg, params, log=lambda *_: None)
+        counts = launch_counts()
+        n_head = len(LH.head_config(cfg.d_model).features)
+        require(counts["flash_attention"] == n_forwards * cfg.n_layers
+                == calls.get("prefill") and counts["lut_layer"] == n_head,
+                f"logic_head {label}: launches {counts}, attention calls "
+                f"{calls}")
+        require(out["bit_exact"], f"logic_head {label}: the logic network "
+                f"parted from the head's argmax")
+        q, k, v, kw = seen["prefill"]
+        require(q.is_cuda and q.shape == (LH.BATCH, LH.S, cfg.n_heads,
+                                          cfg.head_dim)
+                and k.shape[2] == cfg.n_kv_heads,
+                f"logic_head {label}: recorded attention inputs "
+                f"{tuple(q.shape)} {tuple(k.shape)} {q.device}")
+        attn = check_attention_exact(q, k, v, kw,
+                                     f"logic_head {label} prefill layer 0")
+        q_shape, q_dtype = tuple(q.shape), q.dtype
+        del q, k, v, seen
+        net = out["net"]
+        x = torch.from_numpy(
+            out["features"][LH.N_TRAIN:LH.N_TRAIN + LH.N_CHECK]).to(dev)
+        codes = net.quantize_inputs(x)
+        got_codes = net.apply_codes(codes, use_kernel=True)
+        want_codes = net.apply_codes(codes, use_kernel=False)
+        require(got_codes.shape == (LH.N_CHECK, net.n_outputs)
+                and torch.equal(got_codes, want_codes),
+                f"logic_head {label}: lut_layer's codes part from the plain "
+                f"gather's on {int((got_codes != want_codes).sum())} of "
+                f"{want_codes.numel()}")
+        if smoke:
+            require(LH.within_reference_bands(out),
+                    f"logic_head smoke: accuracy {out['test_acc']}, "
+                    f"{out['luts']} LUTs, {out['ffs']} FFs against the "
+                    f"reference's {LH.REFERENCE_RUN} (bands "
+                    f"{LH.ACC_BAND}, {LH.LUT_BAND})")
+        print(f"[logic_head] {cfg.name} ({label}): features "
+              f"{out['features_per_s']:.1f} sequences/s ({LH.N_TRAIN + LH.N_TEST}"
+              f" x {LH.S} tokens in {out['features_s']:.3f} s, flash "
+              f"launches {counts['flash_attention']}; flash at q {q_shape} "
+              f"{q_dtype}: max abs err {attn['flash']:.4g} against "
+              f"attention_ref in float64, attention_ref's own in bf16 "
+              f"{attn['attention_ref']:.4g}, full_attention's "
+              f"{attn['full_attention']:.4g}); head test accuracy "
+              f"{out['test_acc']:.4f} (float {out['float_test_acc']:.4f}"
+              + (f"; the reference's CPU run {LH.REFERENCE_RUN['test_acc']}"
+                 if smoke else "") + f"), bit-exact on {LH.N_CHECK} rows "
+              f"(lut_layer launches {counts['lut_layer']}; its codes equal "
+              f"the plain gather's, all {got_codes.numel()}), {out['luts']} "
+              f"LUTs" + (f" (reference {LH.REFERENCE_RUN['luts']})"
+                         if smoke else "") + f", {out['ffs']} FFs, fmax "
+              f"{out['fmax_mhz']:.0f} MHz, {out['latency_ns']:.1f} ns on "
+              f"{card}")
+        del params, out, net, x, codes, got_codes, want_codes
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[logic_head] phase {time.perf_counter() - t_phase:.1f}s")
+
+
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single"),
+                ("mixtral-8x22b", "decode_32k", "single"),
+                ("seamless-m4t-large-v2", "prefill_32k", "single"),
+                ("glm4-9b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 420
+
+
+def phase_dryrun(card):
+    """The dry run under this machine's torch, on fake tensors with no
+    device (the card hidden from the processes): the DRYRUN_CELLS through
+    ``python -m repro_torch.launch.dryrun`` and the pipeline twin
+    (``repro_torch.examples.pipeline_dryrun``), each a process of its
+    own, all at once. Each cell must end ``ok`` with FLOPs per device
+    above 0 and its argument bytes equal to the rule table's local
+    shards; the pipeline's argument bytes must be one stage's slab of
+    3 layers, the embedding, norm and head, and the tokens, its bubble
+    15/79 and its ring shift a collective-permute each schedule step.
+    Prints each cell's roofline row (H100 rates) and seconds."""
+    import tempfile
+
+    from repro_torch.bench import roofline
+    t_phase = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as out_dir:
+        cmds = {f"{a}_{s}_{m}": [sys.executable, "-m",
+                                 "repro_torch.launch.dryrun", "--arch", a,
+                                 "--shape", s, "--mesh", m, "--out",
+                                 out_dir, "--force"]
+                for a, s, m in DRYRUN_CELLS}
+        cmds["pipeline"] = [sys.executable, "-c",
+                            "import json; from repro_torch.examples import "
+                            "pipeline_dryrun as p; print(json.dumps(p.run()))"]
+        logs = {k: open(os.path.join(out_dir, k + ".log"), "w+")
+                for k in cmds}
+        procs = {k: (subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                      stdout=logs[k],
+                                      stderr=subprocess.STDOUT),
+                     time.perf_counter()) for k, c in cmds.items()}
+        done = {}
+        try:
+            while len(done) < len(procs):
+                require(time.perf_counter() - t_phase < DRYRUN_TIMEOUT_S,
+                        f"dryrun: {sorted(set(procs) - set(done))} still "
+                        f"running after {DRYRUN_TIMEOUT_S} s")
+                for k, (p, t0) in procs.items():
+                    if k not in done and p.poll() is not None:
+                        logs[k].seek(0)
+                        done[k] = (p.returncode, logs[k].read(),
+                                   time.perf_counter() - t0)
+                time.sleep(0.2)
+        finally:
+            for p, _ in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs.values():
+                f.close()
+        for k, (rc, log, _) in done.items():
+            require(rc == 0, f"dryrun {k}: exit {rc}\n{log[-5000:]}")
+        for a, s, m in DRYRUN_CELLS:
+            tag = f"{a}_{s}_{m}"
+            with open(os.path.join(out_dir, tag + ".json")) as f:
+                rec = json.load(f)
+            require(rec["status"] == "ok" and rec["flops_per_device"] > 0
+                    and rec["argument_size_in_bytes"]
+                    == rec["rule_table_argument_bytes"],
+                    f"dryrun {tag}: {json.dumps(rec)[:2000]}")
+            row = roofline.roofline_row(rec)
+            print(f"[dryrun] {tag} (torch {rec['torch']}, "
+                  f"{rec['n_devices']} fake ranks, opts {rec['opts']}): "
+                  f"flops/device {rec['flops_per_device']:.6e}, collectives "
+                  f"{rec['collectives']['total_bytes']:.6e} B "
+                  f"{rec['collectives']['counts']}, args "
+                  f"{rec['argument_size_in_bytes']} B (rule table "
+                  f"{rec['rule_table_argument_bytes']}), temps "
+                  f"{rec['temp_size_in_bytes']} B; roofline at H100 rates: "
+                  f"compute {row['t_compute_s']:.6g} s, memory "
+                  f"{row['t_memory_s']:.6g} s (raw {row['t_memory_raw_s']:.6g}"
+                  f"), collective {row['t_collective_s']:.6g} s, dominant "
+                  f"{row['dominant']}, roofline "
+                  f"{100 * row['roofline_fraction']:.2f}%; build "
+                  f"{rec['build_s']} s, step {rec['step_s']} s, process "
+                  f"{done[tag][2]:.1f} s")
+    pipe = json.loads(done["pipeline"][1].strip().splitlines()[-1])
+    steps = pipe["n_micro"] + pipe["n_stages"] - 1
+    coll = pipe["collectives"]
+    require(pipe["layers_a_stage"] == 3 and pipe["n_stages"] == 16
+            and pipe["argument_size_in_bytes"] == pipe["slab_bytes"]
+            + pipe["other_bytes"] + pipe["tokens_bytes"]
+            and pipe["bubble"] == 15 / 79
+            and coll["counts"]["collective-permute"] == steps
+            and pipe["flops_per_device"] > 0,
+            f"dryrun pipeline: {pipe}")
+    gib = 2 ** 30
+    print(f"[dryrun] pipeline twin (chameleon-34b, 16 stages x 3 layers, "
+          f"{pipe['n_micro']} microbatches): flops/device "
+          f"{pipe['flops_per_device']:.6e}, args "
+          f"{pipe['argument_size_in_bytes'] / gib:.4f} GiB/dev (slab "
+          f"{pipe['slab_bytes'] / gib:.4f}), temps "
+          f"{pipe['temp_size_in_bytes'] / gib:.4f} GiB/dev, "
+          f"collective-permute {coll['bytes']['collective-permute']:.6e} B "
+          f"in {coll['counts']['collective-permute']}, bubble "
+          f"{pipe['bubble']:.4f}; process {done['pipeline'][2]:.1f} s")
+    print(f"[dryrun] phase {time.perf_counter() - t_phase:.1f}s (the "
+          f"processes at once, on the host's cores; no device, {card} "
+          f"hidden)")
 
 
 def main() -> int:
@@ -3936,6 +4207,8 @@ def main() -> int:
     rows += phase_lm_moe_encdec(torch, card, errs)
     rows += phase_lm_train(torch, card, errs)
     phase_dist(torch, card)
+    phase_logic_head(torch, card)
+    phase_dryrun(card)
     require(len(rows) == len(KERNELS) + 6, f"{len(rows)} kernel rows")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))

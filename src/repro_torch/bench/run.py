@@ -17,9 +17,10 @@ root by default):
   ablation — activation-selection + FCP-schedule ablations
   kernels  — kernel microbenchmarks beside their plain versions
   serve    — the scheduler loadgen vs sequential serving (``loadgen``)
-
-The reference's ``roofline`` section needs the LM stack's dry runs,
-which the port does not have yet.
+  roofline — the dry runs' roofline terms at the H100's rates
+             (``roofline``, reading ``launch.dryrun``'s records); it
+             needs no device, and its JSON is written only when
+             ``--out-dir`` is given
 
     python -m repro_torch.bench.run [--only latency,kernels] [--fast]
         [--history [LEDGER]] [--device cpu] [--out-dir DIR]
@@ -34,7 +35,7 @@ from typing import Dict, List
 
 from repro_torch.bench.meta import REPO_ROOT
 
-SECTIONS = ("table1", "latency", "ablation", "kernels", "serve")
+SECTIONS = ("table1", "latency", "ablation", "kernels", "serve", "roofline")
 
 
 def bench_path(out_dir: str, section: str) -> str:
@@ -59,15 +60,19 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")
-    ap.add_argument("--out-dir", default=REPO_ROOT,
-                    help="where the BENCH_<section>_torch.json files go")
+    ap.add_argument("--out-dir", default=None,
+                    help="where the BENCH_<section>_torch.json files go "
+                         "(default the repo root; roofline's only when "
+                         "given)")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
     unknown = (only or set()) - set(SECTIONS)
     if unknown:
         ap.error(f"unknown section(s) {sorted(unknown)}; the port has "
                  f"{', '.join(SECTIONS)}")
-    dev = resolve_device(args.device)
+    # the roofline reads records and runs nothing on a device
+    dev = (resolve_device(args.device) if only is None
+           or only - {"roofline"} else None)
     rows: Dict[str, List[Dict]] = {}
     all_results: Dict = {}
 
@@ -140,18 +145,34 @@ def main(argv=None) -> Dict:
                      + (f";speedup={r['throughput_x_sequential']}x"
                         if "throughput_x_sequential" in r else ""))
 
+    if want("roofline"):
+        from repro_torch.bench import roofline
+        res = roofline.run()
+        all_results["roofline"] = res
+        for r in res:
+            if r["mesh"] == "single":
+                emit(f"roofline/{r['arch']}/{r['shape']}",
+                     max(r["t_compute_s"], r["t_memory_s"],
+                         r["t_collective_s"]) * 1e6,
+                     f"dom={r['dominant']};"
+                     f"roofline={100 * r['roofline_fraction']:.1f}%")
+        if args.out_dir is None:
+            rows.pop("roofline", None)
+
     from repro_torch.bench.meta import bench_meta
     meta = bench_meta(device=dev)
-    os.makedirs(args.out_dir, exist_ok=True)
+    out_dir = args.out_dir or REPO_ROOT
+    if rows:
+        os.makedirs(out_dir, exist_ok=True)
     for section, section_rows in rows.items():
-        with open(bench_path(args.out_dir, section), "w") as f:
+        with open(bench_path(out_dir, section), "w") as f:
             json.dump({"section": section, "meta": meta,
                        "rows": section_rows,
                        "results": all_results.get(section)},
                       f, indent=1, default=str)
     if args.history:
         for section in rows:
-            entry = history.append_file(bench_path(args.out_dir, section),
+            entry = history.append_file(bench_path(out_dir, section),
                                         path=args.history)
             if entry is not None:
                 print(f"[bench] history: {section} -> "

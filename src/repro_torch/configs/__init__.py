@@ -10,7 +10,7 @@ from repro_torch.configs import (chameleon_34b, dbrx_132b, deepseek_67b,
                                  mixtral_8x22b, nemotron_4_340b,
                                  phi4_mini_3_8b, seamless_m4t_large_v2)
 from repro_torch.configs.base import (SHAPES, ArchConfig,  # noqa: F401
-                                      ShapeConfig)
+                                      ShapeConfig, TensorSpec, input_specs)
 
 _MODULES = {
     "chameleon-34b": chameleon_34b,

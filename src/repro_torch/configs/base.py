@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -178,3 +178,42 @@ class ArchConfig:
         mats = 3 if self.act == "swiglu" else 2
         inactive = (self.n_experts - self.moe_top_k) * mats * d * f
         return self.param_count() - self.n_layers * inactive
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry-run stand-ins; zero allocation)
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A model input's shape and dtype, with no data (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+    """A ``TensorSpec`` for every model input of the given shape point,
+    by the names the model's entry points take them."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(b, s):
+        return TensorSpec((b, s), torch.int32)
+
+    def frames(n):
+        return TensorSpec((B, n, cfg.d_model), torch.bfloat16)
+
+    specs: Dict[str, TensorSpec] = {}
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            specs["enc_embeds"] = frames(S // cfg.frontend_frames_div)
+            specs["tokens"] = tok(B, S)
+        elif cfg.frontend == "frames" and shape.kind == "train":
+            specs["frames"] = frames(S)
+        else:
+            specs["tokens"] = tok(B, S)
+        if shape.kind == "train":
+            specs["labels"] = tok(B, S)
+    else:  # decode: one new token against a seq_len cache
+        specs["tokens"] = tok(B, 1)
+        specs["positions"] = TensorSpec((B,), torch.int32)
+    return specs

@@ -44,8 +44,9 @@ def opts(**flags):
 
 
 def host(t) -> np.ndarray:
-    """A tensor (placed or not) as a whole host array."""
-    return sh.full(t).detach().float().cpu().numpy()
+    """A tensor (placed or not) as a whole host array, a copy (a CPU
+    tensor's ``numpy()`` would follow later in-place updates)."""
+    return np.array(sh.full(t).detach().float().cpu())
 
 
 def stacked_numpy(params) -> Dict[str, Any]:
@@ -154,6 +155,46 @@ def fsdp(cfg, params_np, toks_np: np.ndarray, shape, device: str
     return {"unplaced": ref, "placed": got, "counts": _counts(before)}
 
 
+def mixed_precision(cfg, params_np, toks_np: np.ndarray, shape,
+                    device: str) -> Dict[str, Any]:
+    """Two AdamW steps with ``mixed_precision`` (bf16 live
+    parameters, the float32 master in the optimizer state), parameters
+    placed by the rule table, against the unplaced steps: the losses,
+    every leaf's first moment after the first step (as ``fsdp``: the
+    updated leaves are too sensitive to compare), and every leaf's
+    master and live value after the last; with ``local_dtypes``, the
+    types of the placed live leaves' local shards."""
+    from repro_torch.models import lm
+    from repro_torch.train.loop import init_state, make_train_step
+    from repro_torch.train.optim import AdamW
+    opt = AdamW(lr=1e-3, mixed_precision=True)
+    step = make_train_step(cfg, opt)
+    batch_np = {"tokens": toks_np, "labels": toks_np}
+
+    def run(params, batch):
+        state = init_state(cfg, opt, params=params)
+        losses = []
+        for i in range(2):
+            state, m = step(state, batch)
+            losses.append(float(host(m["loss"])))
+            if i == 0:
+                mu = [host(t) for t in state.opt.mu]
+        return (losses, mu, [host(t) for t in state.opt.master],
+                [host(t) for t in lm.leaves(state.params)])
+
+    ref = run(_params(cfg, params_np, device),
+              {k: torch.from_numpy(v).to(device)
+               for k, v in batch_np.items()})
+    mesh = make_mesh(shape, device)
+    with sh.use_mesh(mesh):
+        params = sh.place_params(mesh, _params(cfg, params_np, device))
+        from repro_torch.data.tokens import sharded_batch
+        batch = sharded_batch(batch_np, sh.batch_shardings(mesh, batch_np))
+        got = run(params, batch)
+    local = {str(t.to_local().dtype) for t in lm.leaves(params)}
+    return {"unplaced": ref, "placed": got, "local_dtypes": sorted(local)}
+
+
 def decode(cfg, params_np, toks_np: np.ndarray, shape, device: str,
            prompt: int, max_seq: int) -> Dict[str, Any]:
     """One decode step under ``serve_tp_only`` (parameters and the
@@ -241,6 +282,50 @@ def pipeline(cfg, params_np, toks_np: np.ndarray, shape, device: str,
             g_pp = _grads(lm.lm_loss(cfg, params, h_pp, toks), leaves)
     return {"unplaced": host(h_ref), "placed": host(h_pp),
             "grads_unplaced": g_ref, "grads_placed": g_pp,
+            "counts": _counts(before)}
+
+
+def pipeline_stages(cfg, params_np, toks_np: np.ndarray, shape,
+                    device: str, n_micro: int = 2) -> Dict[str, Any]:
+    """``pipeline_lm_forward`` over parameters placed by stage
+    (``stage_params``) against ``lm.forward``: hidden states, and the
+    gradient of ``lm_loss`` of them for each leaf this rank holds (its
+    stage's layers, under their global names, and every leaf outside
+    the layers) beside the unplaced gradient of the same leaf; the
+    layers this rank holds."""
+    from repro_torch.dist.pipeline import pipeline_lm_forward, stage_params
+    from repro_torch.models import lm
+    params = _params(cfg, params_np, device)
+    toks = torch.from_numpy(toks_np).to(device)
+    leaves = lm.leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with torch.enable_grad():
+        h_ref = lm.forward(cfg, params, tokens=toks)[0]
+        g_ref = dict(zip(lm.leaf_names(params), _grads(
+            lm.lm_loss(cfg, params, h_ref, toks), leaves)))
+        mesh = make_mesh(shape, device)
+        staged = stage_params(cfg, params, mesh)
+        stage, n = staged.stage
+        first = stage * cfg.n_layers // n
+        before = dict(sh.COUNTS)
+        with sh.use_mesh(mesh):
+            h_pp = pipeline_lm_forward(cfg, staged, toks, mesh,
+                                       n_micro=n_micro)
+            g_pp = _grads(lm.lm_loss(cfg, staged, h_pp, toks),
+                          lm.leaves(staged))
+
+    def global_name(name):
+        parts = name.split("::")
+        if parts[0] == "layers":
+            parts[1] = str(first + int(parts[1]))
+        return "::".join(parts)
+
+    names = [global_name(n) for n in lm.leaf_names(staged)]
+    return {"unplaced": host(h_ref), "placed": host(h_pp),
+            "grads_placed": dict(zip(names, g_pp)),
+            "grads_unplaced": {k: g_ref[k] for k in names},
+            "layers_held": list(range(first, first + len(staged.layers))),
             "counts": _counts(before)}
 
 

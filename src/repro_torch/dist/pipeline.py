@@ -25,8 +25,13 @@ summed over the stages, so after the backward every rank holds the
 whole gradient of every leaf, as the unplaced forward's. Every rank
 calls every collective in the same order. Embedding and the final norm
 run outside the stages; activation constraints are suspended inside
-them (``shardings.suspend_mesh``). The parameters are unplaced: each
-stage reads its slab whole.
+them (``shardings.suspend_mesh``).
+
+The parameters come unplaced (every rank holds every layer; each stage
+reads its slab out of them), or placed by stage (``stage_params``: rank
+s holds only its own layers, the reference's ``P(_STAGE_AXIS)`` on its
+stacked layers). Placed, a stage's layer gradients stay on that stage,
+as the reference's do, and no all-reduce of the layers runs.
 """
 from __future__ import annotations
 
@@ -108,6 +113,35 @@ def _tree(mod, values) -> _Tree:
     return out
 
 
+def stage_params(cfg, params, mesh):
+    """``params`` placed by stage over the mesh's 'model' axis: a
+    ``Params`` holding this rank's slab of decoder layers (stage s of n
+    holds layers [s L/n, (s+1) L/n)) and every other leaf whole, the
+    tensors ``params``' own. ``stage`` records (s, n)."""
+    from torch import nn
+
+    from repro_torch.models.lm import Params
+    n = sh._mesh_axis_size(mesh, _STAGE_AXIS)
+    if cfg.n_layers % n:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by {n} "
+                         f"stages")
+    s = mesh.get_local_rank(_STAGE_AXIS)
+    per = cfg.n_layers // n
+    out = Params({})
+    for key in params.keys():
+        if key == "layers":
+            out.add_module(key, nn.ModuleList(
+                params.layers[s * per:(s + 1) * per]))
+        elif key in params._modules:
+            out.add_module(key, params._modules[key])
+        elif key in params._buffers:
+            out.register_buffer(key, params._buffers[key])
+        else:
+            out.register_parameter(key, params._parameters[key])
+    out.stage = (s, n)
+    return out
+
+
 def pipeline_lm_forward(cfg, params, tokens: Tensor, mesh,
                         n_micro: int = 2) -> Tensor:
     """Stage-partitioned decoder forward. Returns (B, S, D) hidden
@@ -115,7 +149,8 @@ def pipeline_lm_forward(cfg, params, tokens: Tensor, mesh,
     replicated on every rank.
 
     Requires cfg.n_layers % mesh 'model' size == 0 and batch % n_micro
-    == 0, and unplaced parameters. Dense / MoE / SSM decoder-only
+    == 0, and parameters unplaced or placed by ``stage_params`` over
+    this mesh (no DTensor leaves). Dense / MoE / SSM decoder-only
     families only (no encoder-decoder cross-attention through the
     pipeline).
     """
@@ -131,11 +166,16 @@ def pipeline_lm_forward(cfg, params, tokens: Tensor, mesh,
         raise NotImplementedError("pipeline over enc-dec not supported")
     if any(sh.is_placed(t) for t in lm.leaves(params)):
         raise ValueError("the pipeline reads each stage's layers whole: "
-                         "pass unplaced parameters")
+                         "pass unplaced or stage_params' parameters")
     group = mesh.get_group(_STAGE_AXIS)
     stage = mesh.get_local_rank(_STAGE_AXIS)
     per = n_layers // n_stages
     mine = range(stage * per, (stage + 1) * per)
+    staged = getattr(params, "stage", None)
+    if staged is not None and staged != (stage, n_stages):
+        raise ValueError(f"parameters placed for stage {staged[0]} of "
+                         f"{staged[1]}, this rank is stage {stage} of "
+                         f"{n_stages}")
 
     dt = L.cdtype(cfg)
     x = params["embed"].to(dt)[tokens]                         # (B, S, D)
@@ -149,7 +189,9 @@ def pipeline_lm_forward(cfg, params, tokens: Tensor, mesh,
     n_steps = n_micro + n_stages - 1
 
     layers = list(params.layers)
-    if n_stages > 1:
+    if staged is not None:
+        slab_layers = layers
+    elif n_stages > 1:
         counts = [len(lm.named_leaves(lp)) for lp in layers]
         lo, hi = sum(counts[:mine.start]), sum(counts[:mine.stop])
         slab = iter(_StageSlab.apply(group, lo, hi,

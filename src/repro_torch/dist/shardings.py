@@ -12,7 +12,7 @@ One module owns the layout story:
     are the same on every rank;
   * ``OPTS`` / ``set_opts`` — the strategy flags the placed paths read
     (expert parallelism, pure FSDP, serve-time tensor parallelism,
-    sequence parallelism);
+    sequence parallelism) and the dry run's mixed-precision flag;
   * ``param_pspec`` — the reference's 2-D (fsdp x tensor) rule table
     over the port's leaf names (``lm.named_leaves``). The port's layers
     are unstacked, so a layer leaf's spec is the reference's without
@@ -99,6 +99,7 @@ OPTS = {
     "fsdp_pure": False,      # every mesh axis is data-parallel
     "serve_tp_only": False,  # decode: tensor-parallel only, batch replicated
     "seq_parallel": False,   # shard activation sequence axis over 'model'
+    "bf16_params": False,    # mixed-precision training (f32 master in opt)
 }
 
 

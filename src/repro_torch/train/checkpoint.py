@@ -9,8 +9,9 @@
     checkpoint;
   * ``restore_latest`` scans for the newest committed step — the
     restart-after-failure path;
-  * ``AsyncCheckpointer`` copies the tree to the host on the caller's
-    thread (ordered after the train step) and writes it on a worker
+  * ``AsyncCheckpointer`` copies the tree to host memory on the
+    caller's thread (ordered after the train step; a copy even of a CPU
+    leaf, which the next step changes in place) and writes it on a worker
     thread; the train loop blocks only on the previous save, and old
     steps past ``keep`` are removed.
 
@@ -93,17 +94,21 @@ def _rebuild(tree: PyTree, fn: Callable, path: Tuple[str, ...] = ()):
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a host array and the dtype name the manifest records
-    (a placed leaf gathered whole: a collective)."""
+    (a placed leaf gathered whole: a collective). The array is a copy:
+    a CPU leaf (or the local shard ``full_tensor`` returns at world 1)
+    is changed in place by the next train step while a writer thread
+    may still be saving it."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if is_placed(t):
             t = t.full_tensor()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).cpu().numpy().view(np.uint16), \
-                "bfloat16"
-        arr = t.cpu().numpy()
+            t = t.view(torch.int16)
+        arr = t.to("cpu", copy=True).numpy()
+        if leaf.dtype == torch.bfloat16:
+            return arr.view(np.uint16), "bfloat16"
     else:
-        arr = np.asarray(leaf)
+        arr = np.array(leaf)
     return arr, str(arr.dtype)
 
 

@@ -63,9 +63,15 @@ class AdamWState(NamedTuple):
 
 def _set_bf16(p: Tensor, value: Tensor) -> None:
     """p <- value rounded to bf16, in place (p becomes bf16 if it was
-    not)."""
+    not; a placed p by ``swap_tensors``, since ``.data =`` would leave
+    its local shard in the old type)."""
     if p.dtype == torch.bfloat16:
         p.copy_(value)
+    elif is_placed(p):
+        new = value.detach().to(torch.bfloat16)
+        if isinstance(p, torch.nn.Parameter):
+            new = torch.nn.Parameter(new, requires_grad=p.requires_grad)
+        torch.utils.swap_tensors(p, new)
     else:
         p.data = value.to(torch.bfloat16)
 

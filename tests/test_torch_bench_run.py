@@ -205,7 +205,7 @@ def test_run_latency_writes_the_reference_layout(tmp_path, capsys):
 def _fake_sections(monkeypatch):
     """Every section's twin replaced by a stub that records its call."""
     from repro_torch.bench import (ablations, kernels_bench, latency,
-                                   loadgen, table1_jsc)
+                                   loadgen, roofline, table1_jsc)
     calls = {}
     r1 = {"accuracy": 0.5, "synth": {"equivalent": True},
           "nullanet": {"luts": 9, "backend": "synth", "depth": 2,
@@ -234,6 +234,10 @@ def _fake_sections(monkeypatch):
     monkeypatch.setattr(kernels_bench, "run", stub(
         "kernels", {"xnor_pallas_us": 3.0}))
     monkeypatch.setattr(loadgen, "run", stub("serve", serve))
+    roof = {"arch": "glm4-9b", "shape": "train_4k", "mesh": "single",
+            "t_compute_s": 2.0, "t_memory_s": 1.0, "t_collective_s": 0.5,
+            "dominant": "compute", "roofline_fraction": 0.25}
+    monkeypatch.setattr(roofline, "run", stub("roofline", [roof]))
     return calls
 
 
@@ -248,9 +252,13 @@ def test_run_dispatches_every_section_at_the_reference_steps(
     assert calls["latency"]["steps"] == (200 if fast else 600)
     assert calls["serve"]["fast"] is fast
     assert not calls["serve"]["write_json"]
+    # the roofline reads the dry runs' records and takes no device
+    assert calls.pop("roofline") == {}
     assert all(str(kw["device"]) == "cpu" for kw in calls.values())
     out = capsys.readouterr().out
     assert "kernels/xnor_pallas_us,3.0,cpu" in out
+    assert "roofline/glm4-9b/train_4k,2000000.0,dom=compute;roofline=25.0%" \
+        in out
     assert "serve/gather/closed_loop,90.0," in out
     for section in run.SECTIONS:
         doc = json.loads(open(run.bench_path(str(tmp_path), section)).read())
@@ -261,5 +269,5 @@ def test_run_dispatches_every_section_at_the_reference_steps(
 
 def test_run_refuses_an_unknown_section(tmp_path):
     with pytest.raises(SystemExit):
-        run.main(["--only", "roofline", "--device", "cpu",
+        run.main(["--only", "no_such_section", "--device", "cpu",
                   "--out-dir", str(tmp_path)])

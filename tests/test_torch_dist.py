@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.configs as RC
 import repro.models.layers as RL
@@ -69,13 +70,19 @@ def tokens(key, shape, vocab):
                                          vocab), np.int32)
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """Inputs, the reference's results, and the ranks' results of every
-    check from one world of 4."""
+# the meshes of the world of 4; tests/test_torch_dist8.py runs the same
+# checks at the reference's (2, 4) in a world of 8
+MESHES = {"moe": (2, 2), "fsdp": (2, 2),
+          "decode": {"decode_heads": (2, 2), "decode_sequence": (1, 4)},
+          "elastic": ((2, 2), (4, 1)), "pipeline": (1, 4)}
+
+
+def build(tmp_path_factory, meshes):
+    """(jobs, reference results): every check on the given meshes, its
+    inputs, and the reference's unsharded results."""
     jobs, ref = [], {}
 
-    # moe: mixtral smoke, 4 experts, capacity factor 8, moe_ep, (2, 2)
+    # moe: mixtral smoke, 4 experts, capacity factor 8, moe_ep
     rcfg, cfg = both("mixtral-8x22b", n_experts=4, capacity_factor=8.0)
     rp = RL.init_moe(jax.random.PRNGKey(0), rcfg)
     rng = np.random.default_rng(1)
@@ -88,7 +95,7 @@ def run(tmp_path_factory):
     ref["moe"] = (np.asarray(out), [np.asarray(gx)]
                   + [np.asarray(gp[k]) for k in names])
     jobs.append(("moe", "moe", dict(cfg=cfg, p_np=np_tree(rp), x_np=x,
-                                    cot_np=cot, shape=(2, 2),
+                                    cot_np=cot, shape=meshes["moe"],
                                     device="cpu")))
 
     # fsdp: phi4-mini smoke, B 8 x S 64, one AdamW step under fsdp_pure
@@ -102,11 +109,16 @@ def run(tmp_path_factory):
     ref["fsdp"] = (float(m["loss"]), float(m["grad_norm"]),
                    port_leaves(cfg, np_tree(state.opt.mu)))
     jobs.append(("fsdp", "fsdp", dict(cfg=cfg, params_np=np_tree(rp),
-                                      toks_np=toks, shape=(2, 2),
+                                      toks_np=toks, shape=meshes["fsdp"],
                                       device="cpu")))
+    # mixed precision: the same model and batch, two steps, rule table
+    jobs.append(("mixed", "mixed_precision", dict(
+        cfg=cfg, params_np=np_tree(rp), toks_np=toks, shape=meshes["fsdp"],
+        device="cpu")))
 
     # decode: glm4 smoke, 4 x 32 prefill + one step, serve_tp_only; the
-    # heads branch on (2, 2) (KV 2), the sequence-sharded one on (1, 4)
+    # heads branch where the model axis divides KV 2, else the
+    # sequence-sharded one
     rcfg, cfg = both("glm4-9b")
     rp = RLM.init_params(rcfg, jax.random.PRNGKey(0))
     toks = tokens(1, (4, 33), rcfg.vocab_size)
@@ -115,15 +127,15 @@ def run(tmp_path_factory):
     logits, _ = RLM.decode_step(rcfg, rp, cache, jnp.asarray(toks[:, 32:]),
                                 jnp.full((4,), 32, jnp.int32))
     ref["decode"] = np.asarray(logits, np.float32)
-    for label, shape in (("decode_heads", (2, 2)),
-                         ("decode_sequence", (1, 4))):
+    for label, shape in meshes["decode"].items():
         jobs.append((label, "decode", dict(
             cfg=cfg, params_np=np_tree(rp), toks_np=toks, shape=shape,
             device="cpu", prompt=32, max_seq=40)))
 
-    # elastic: saved on (2, 2), restored on (4, 1)
+    # elastic: saved on one mesh, restored on another
+    shape_a, shape_b = meshes["elastic"]
     jobs.append(("elastic", "elastic", dict(
-        cfg=cfg, params_np=np_tree(rp), shape_a=(2, 2), shape_b=(4, 1),
+        cfg=cfg, params_np=np_tree(rp), shape_a=shape_a, shape_b=shape_b,
         device="cpu", ckpt_dir=str(tmp_path_factory.mktemp("elastic")))))
 
     # pipeline: glm4 smoke at 4 layers, 4 stages, n_micro 2, and grad
@@ -138,9 +150,20 @@ def run(tmp_path_factory):
     ref["pipeline"] = (np.asarray(RLM.forward(rcfg, rp, tokens=tj)[0]),
                        port_leaves(cfg, np_tree(jax.grad(loss)(rp))))
     jobs.append(("pipeline", "pipeline", dict(
-        cfg=cfg, params_np=np_tree(rp), toks_np=toks, shape=(1, 4),
-        device="cpu", n_micro=2)))
+        cfg=cfg, params_np=np_tree(rp), toks_np=toks,
+        shape=meshes["pipeline"], device="cpu", n_micro=2)))
+    # the same, each rank holding only its stage's layers
+    jobs.append(("pipeline_stages", "pipeline_stages", dict(
+        cfg=cfg, params_np=np_tree(rp), toks_np=toks,
+        shape=meshes["pipeline"], device="cpu", n_micro=2)))
+    return jobs, ref
 
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The reference's results, and the ranks' results of every check
+    from one world of 4."""
+    jobs, ref = build(tmp_path_factory, MESHES)
     ranks = world.run(checks.run_checks, WORLD, (jobs,), timeout=TIMEOUT)
     return ref, ranks
 
@@ -152,8 +175,7 @@ def result(run, label):
     return ref, got
 
 
-def test_every_rank_returns_the_same_results(run):
-    _, ranks = run
+def hold_same_results(ranks):
     for label, got in ranks[0].items():
         assert "error" not in got, got["error"]
         for other in ranks[1:]:
@@ -167,10 +189,11 @@ def test_every_rank_returns_the_same_results(run):
                     assert np.array_equal(x, y), label
 
 
-def test_moe_expert_parallel(run):
-    """moe_ep on (2, 2): the output and the gradients of x and of every
-    weight against the unplaced block and the reference's vmap path."""
-    ref, got = result(run, "moe")
+def test_every_rank_returns_the_same_results(run):
+    hold_same_results(run[1])
+
+
+def hold_moe(ref, got):
     want_out, want_grads = ref["moe"]
     assert got["counts"].get("moe_expert_parallel") == 1, got["counts"]
     assert err(got["placed"], got["unplaced"]) <= PLACED_TOL
@@ -181,10 +204,13 @@ def test_moe_expert_parallel(run):
         assert err(g_u, g_r) <= F32_TOL
 
 
-def test_fsdp_pure_train_step(run):
-    """One AdamW step under fsdp_pure on (2, 2): loss, gradient norm
-    and every leaf's first moment after it."""
-    ref, got = result(run, "fsdp")
+def test_moe_expert_parallel(run):
+    """moe_ep on (2, 2): the output and the gradients of x and of every
+    weight against the unplaced block and the reference's vmap path."""
+    hold_moe(*result(run, "moe"))
+
+
+def hold_fsdp(ref, got):
     r_loss, r_gnorm, r_leaves = ref["fsdp"]
     (u_loss, u_gnorm, u_leaves), (p_loss, p_gnorm, p_leaves) = \
         got["unplaced"], got["placed"]
@@ -198,15 +224,37 @@ def test_fsdp_pure_train_step(run):
         assert err(b, c) <= F32_TOL
 
 
-@pytest.mark.parametrize("label,branch,specs", [
-    ("decode_heads", "decode_heads", (None, "data", None, "model", None)),
-    ("decode_sequence", "decode_sequence",
-     (None, None, "model", None, None))])
-def test_decode_serve_tp_only(run, label, branch, specs):
-    """A decode step under serve_tp_only with its cache placed by
-    cache_pspec: the logits, the argmax and the updated cache; the
-    placed prefill's logits and cache."""
-    ref, got = result(run, label)
+def test_fsdp_pure_train_step(run):
+    """One AdamW step under fsdp_pure on (2, 2): loss, gradient norm
+    and every leaf's first moment after it."""
+    hold_fsdp(*result(run, "fsdp"))
+
+
+def hold_mixed_precision(got):
+    (u_loss, u_mu, _, _), (p_loss, p_mu, p_master, p_live) = \
+        got["unplaced"], got["placed"]
+    assert got["local_dtypes"] == ["torch.bfloat16"]
+    for a, b in zip(p_loss, u_loss):
+        assert abs(a - b) <= PLACED_TOL * max(1.0, abs(b))
+    for a, b in zip(p_mu, u_mu):
+        assert err(a, b) <= PLACED_TOL
+    for master, live in zip(p_master, p_live):
+        # the live leaf is its master rounded to bf16
+        assert np.array_equal(live, np.asarray(
+            torch.from_numpy(master).bfloat16().float()))
+
+
+def test_mixed_precision_placed_steps(run):
+    """Two AdamW steps with mixed_precision, parameters placed by the
+    rule table on (2, 2): every live leaf's local shard is bf16 (the
+    cast swaps the placed tensor; ``.data =`` left the shard float32),
+    the losses and the first step's moments match the unplaced steps
+    within PLACED_TOL, and each live leaf is its master rounded to
+    bf16."""
+    hold_mixed_precision(result(run, "mixed")[1])
+
+
+def hold_decode(ref, got, branch, specs):
     assert got["cache_specs"]["k"] == specs
     assert got["counts"].get(branch, 0) > 0, got["counts"]
     assert err(got["placed"], got["unplaced"]) <= PLACED_TOL
@@ -219,20 +267,31 @@ def test_decode_serve_tp_only(run, label, branch, specs):
         assert err(a, b) <= PLACED_TOL
 
 
-def test_elastic_restore_onto_another_mesh(run):
-    """Placed on (2, 2), saved, restored onto (4, 1) with shardings=:
-    bit for bit, every leaf on the new mesh under its rule."""
-    _, got = result(run, "elastic")
+@pytest.mark.parametrize("label,branch,specs", [
+    ("decode_heads", "decode_heads", (None, "data", None, "model", None)),
+    ("decode_sequence", "decode_sequence",
+     (None, None, "model", None, None))])
+def test_decode_serve_tp_only(run, label, branch, specs):
+    """A decode step under serve_tp_only with its cache placed by
+    cache_pspec: the logits, the argmax and the updated cache; the
+    placed prefill's logits and cache."""
+    hold_decode(*result(run, label), branch, specs)
+
+
+def hold_elastic(got, restored_on):
     assert len(got["placed"]) == len(got["unplaced"])
     for a, b in zip(got["placed"], got["unplaced"]):
         assert np.array_equal(a, b)
-    assert got["meshes"] == [(4, 1)] and got["specs_match"]
+    assert got["meshes"] == [restored_on] and got["specs_match"]
 
 
-def test_pipeline_forward_and_gradient(run):
-    """GPipe over 4 stages with 2 microbatches: the hidden states and
-    the gradient of lm_loss for every leaf."""
-    ref, got = result(run, "pipeline")
+def test_elastic_restore_onto_another_mesh(run):
+    """Placed on (2, 2), saved, restored onto (4, 1) with shardings=:
+    bit for bit, every leaf on the new mesh under its rule."""
+    hold_elastic(result(run, "elastic")[1], (4, 1))
+
+
+def hold_pipeline(ref, got):
     want_h, want_g = ref["pipeline"]
     assert got["counts"].get("pipeline") == 1, got["counts"]
     assert err(got["placed"], got["unplaced"]) <= PLACED_TOL
@@ -242,3 +301,34 @@ def test_pipeline_forward_and_gradient(run):
                              want_g):
         assert err(g_p, g_u) <= PLACED_TOL
         assert err(g_u, g_r) <= F32_TOL
+
+
+def test_pipeline_forward_and_gradient(run):
+    """GPipe over 4 stages with 2 microbatches: the hidden states and
+    the gradient of lm_loss for every leaf."""
+    hold_pipeline(*result(run, "pipeline"))
+
+
+def hold_pipeline_stages(ref, ranks, layers_held):
+    want_h, _ = ref["pipeline"]
+    held = []
+    for got in (r["pipeline_stages"] for r in ranks):
+        assert "error" not in got, got["error"]
+        assert got["counts"].get("pipeline") == 1, got["counts"]
+        assert err(got["placed"], got["unplaced"]) <= PLACED_TOL
+        assert err(got["unplaced"], want_h) <= F32_TOL
+        assert set(got["grads_placed"]) == set(got["grads_unplaced"])
+        for name, g in got["grads_placed"].items():
+            assert err(g, got["grads_unplaced"][name]) <= PLACED_TOL, name
+        held.append(got["layers_held"])
+    assert held == layers_held
+
+
+def test_pipeline_placed_by_stage(run):
+    """GPipe over 4 stages with parameters placed by stage
+    (``stage_params``): each rank holds one layer of the four, the
+    hidden states match unplaced ``lm.forward``, and the gradient of
+    lm_loss for each leaf a rank holds (its layer, the embedding, the
+    final norm and the head) matches the unplaced one, within
+    PLACED_TOL."""
+    hold_pipeline_stages(*run, [[0], [1], [2], [3]])

@@ -77,7 +77,12 @@ def test_every_module_imports_without_jax():
                                     "repro_torch.dist.pipeline",
                                     "repro_torch.dist.checks",
                                     "repro_torch.dist.world",
-                                    "repro_torch.launch.mesh"])
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.bench.roofline",
+                                    "repro_torch.bench.report",
+                                    "repro_torch.examples.logic_head",
+                                    "repro_torch.examples.pipeline_dryrun"])
 def test_training_modules_import_without_jax(module):
     """Each module of the training, serving-at-scale, verification,
     benchmark and LM slices, alone in a fresh interpreter, leaves JAX

@@ -177,9 +177,10 @@ def test_batch_axes_under_each_flag_matches_reference(shape, flags):
 
 def test_set_opts_rejects_unknown_flags():
     with pytest.raises(KeyError):
-        sh.set_opts(bf16_params=True)     # read only by the dry run
-    assert sorted(sh.OPTS) == ["fsdp_pure", "moe_ep", "seq_parallel",
-                               "serve_tp_only"]
+        sh.set_opts(no_such_flag=True)
+    assert sorted(sh.OPTS) == sorted(RSH.OPTS) == [
+        "bf16_params", "fsdp_pure", "moe_ep", "seq_parallel",
+        "serve_tp_only"]
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=str)
