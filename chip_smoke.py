@@ -227,7 +227,9 @@ Phases, each printing its own lines:
                 every shape the phase launched it at and a ragged one,
                 and rows 7h / 7i of the kernels line (the forward with
                 its log-sum-exp and the backward at glm4-9b's training
-                shape, beside SDPA).
+                shape, beside SDPA); the backward's and SDPA's device
+                times there and at the (H 16, KV 1) shape come from
+                ``bench/flash_backward.py`` in a process of its own.
   16. dist    — the placed paths: glm4-9b (4 of 40 layers) through the
                 launcher unplaced and at ``--model-par 1`` (NCCL world
                 1), decode under serve_tp_only, the pipeline at one
@@ -343,41 +345,6 @@ def time_ms(fn, iters: int = 200, reps: int = 7) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
-
-
-def device_us(fn, kernel, n: int = 20):
-    """The profiler's device time per launch of ``kernel`` (a substring of
-    the kernel symbol; None: every kernel) over ``n`` back-to-back calls
-    of ``fn``, and the launches seen; (None, 0) when the profiler saw
-    none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and (kernel is None or kernel in e.key)]
-    launches = sum(e.count for e in mine)
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) for e in mine)
-    return (us / launches if launches else None), launches
-
-
-def device_us_seen(fn, kernel, n: int = 10):
-    """``device_us``, repeated up to three times until the profiler sees
-    a launch (a session now and then sees none); fails if it never
-    does."""
-    for _ in range(3):
-        us, launches = device_us(fn, kernel, n)
-        if launches:
-            return us, launches
-    raise SmokeFailure(f"the profiler saw no {kernel or 'kernel'} in three "
-                       "sessions")
 
 
 @contextlib.contextmanager
@@ -712,6 +679,16 @@ def phase_build():
             " mma) instruction in its SASS")
     print(f"[build] xnor_popcount_kernel SASS: {n_bmma} BMMA instructions "
           "(binary mma on the tensor cores)")
+    # the flash backward's wgmma branch: dh 64 and 128, warpgroup mma
+    wg = [n for n, _, _ in report if "flash_bwd_wgmma" in n]
+    require(len(wg) == 2, f"ptxas reported {len(wg)} flash_bwd_wgmma "
+            "kernels, expected 2 (dh 64 and 128)")
+    sass = sass_of(build.build().parent / build.LIB_NAME, "flash_bwd_wgmma")
+    n_gmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
+    require(n_gmma > 0, "flash_bwd_wgmma_kernel has no HGMMA (warpgroup "
+            "mma) instruction in its SASS")
+    print(f"[build] flash_bwd_wgmma_kernel SASS (dh 64 and 128): {n_gmma} "
+          "HGMMA instructions (wgmma on the tensor cores)")
 
 
 def sass_of(lib, kernel: str) -> str:
@@ -1063,6 +1040,7 @@ def phase_timing(torch, runs, batch, errs, card):
     beside it. The bound counts the least bytes the function moves
     (``netlist_work``; lut_layer's tables at their stored width), the
     bytes of the padded plan tensors are printed beside it."""
+    from repro_torch.bench.profiled import device_time
     from repro_torch.kernels.lut_eval import (plan_stacked, plan_streamed,
                                               stacked_smem_bytes,
                                               streamed_smem_bytes)
@@ -1071,14 +1049,16 @@ def phase_timing(torch, runs, batch, errs, card):
     rows = []
     # the launch floor: the smallest kernel torch launches
     one = torch.ones(1, device="cuda")
-    floor, n_floor = device_us(one.zero_, None)
+    zero = device_time(one.zero_, None, 20)
+    floor = zero.launch_us
     require(floor is not None, "the profiler saw no device time of zero_")
     print(f"[timing] launch floor: one-element zero_ {floor:.2f} us per "
-          f"launch on the device ({n_floor} launches) on {card}")
+          f"launch on the device ({zero.seen} launches) on {card}")
 
     def row(name, fn, plain, n_bytes, n_ops, launches, plan_bytes):
         ms, plain_ms = time_ms(fn), time_ms(plain)
-        dev, n = device_us(fn, f"{name}_kernel")
+        t_ = device_time(fn, f"{name}_kernel", 20)
+        dev, n = t_.launch_us, t_.seen
         b_ms, b_by = bound(n_bytes, n_ops)
         src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -1155,8 +1135,9 @@ def phase_timing(torch, runs, batch, errs, card):
         n_tile, b_tile, smem = plan_layer(*shape)
         require(smem, f"served layer {i} {shape} is not staged in shared "
                 "memory")
-        dev, n = device_us(lambda c=c, idx=idx, tables=tables, L=L:
-                           lut_layer(c, idx, tables, L), "lut_layer_kernel")
+        t_ = device_time(lambda c=c, idx=idx, tables=tables, L=L:
+                         lut_layer(c, idx, tables, L), "lut_layer_kernel", 20)
+        dev, n = t_.launch_us, t_.seen
         print(f"[timing] lut_layer served layer {i} (B, n_in, N, K, R) "
               f"{shape}: blocks of {n_tile} neurons x {b_tile} rows, "
               f"{layer_smem_bytes(n_tile, b_tile, shape[1], shape[3], shape[4])}"
@@ -2013,6 +1994,7 @@ def phase_latency(torch, card):
     ``execute_packed`` walks on the trained netlist at W = 8 against the
     host fold, the regression gate over the written records against
     themselves and the history ledger's idempotent append."""
+    from repro_torch.bench.profiled import device_time
     import io
     import tempfile
 
@@ -2106,8 +2088,7 @@ def phase_latency(torch, card):
                x, latency.N_CLASSES)}
     with tf32(False):
         for name, fn in fns.items():
-            us, n = device_us(fn, None, 10)
-            busy[name] = us * n / 10 if n else None
+            busy[name] = device_time(fn, None, 10).call_us
             torch.cuda.synchronize()
             syncs[name] = count_syncs(torch, fn)
     print(f"[latency] {len(files)} records, {n_checked} metrics checked, "
@@ -2178,12 +2159,16 @@ def kernel_time_fns(torch, inp, errs):
 def phase_kernel_times(torch, card):
     """``--kernel-times``: one JSON line of the profiler's device time
     per launch of each of ``kernel_time_fns``."""
+    from repro_torch.bench.profiled import device_time
     import repro_torch
     from repro_torch.bench.kernels_bench import FULL, make_inputs
     inp = make_inputs(torch.device("cuda"), FULL)
     res = {"package": os.path.dirname(repro_torch.__file__), "card": card}
     for label, (fn, symbol) in kernel_time_fns(torch, inp, {}).items():
-        res[f"{label} device us"] = device_us_seen(fn, symbol)[0]
+        us = device_time(fn, symbol).launch_us
+        require(us is not None, f"the profiler saw no {symbol} in three "
+                "sessions")
+        res[f"{label} device us"] = us
     print(json.dumps(res))
 
 
@@ -2194,6 +2179,7 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     launch from ``torch.profiler``. Each library call is first held to
     the kernel's result: exactly for xnor, within the kernel's tolerance
     for the float ones (TF32 off)."""
+    from repro_torch.bench.profiled import device_time
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.aig_sim import aig_sim_ref, aig_sim_walk
@@ -2313,11 +2299,12 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
 
     def fanin_lib_row(label, x, w, bias, tol_of):
         """(ms, device us, name) of the fastest library call on the
-        device, after holding each to the kernel within ``tol_of(got)``
+        device (by CUDA events where the profiler missed a launch of
+        one), after holding each to the kernel within ``tol_of(got)``
         of max(1, |y|); a call this torch refuses is printed and
         skipped."""
         got = fanin_matmul(x, f.idx, w, bias)
-        best = None
+        cands = []
         for name, fn in fanin_libs(x, w, bias).items():
             try:
                 with tf32(False):
@@ -2331,20 +2318,23 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
                         tol_of(got), f"{label} against the {name}",
                         relative=True)
             with tf32(False):
-                per_launch, n = device_us_seen(fn, None)
+                t_ = device_time(fn, None)
                 ms = time_ms(fn)
-            dev_us = per_launch * n / 10           # every kernel of a call
+            dev_us = t_.call_us                    # every kernel of a call
             print(f"[timing2] {label} library {name}: {ms:.5f} ms, device "
-                  f"{dev_us:.2f} us per call ({n / 10:g} kernels) on {card}")
-            if best is None or dev_us < best[1]:
-                best = (ms, dev_us, name)
-        require(best is not None, f"{label}: no library call ran")
-        return best
+                  f"{us_text(dev_us)} per call ({t_.launches} kernels) on "
+                  f"{card}")
+            cands.append((ms, dev_us, name))
+        require(cands, f"{label}: no library call ran")
+        by_device = all(c[1] is not None for c in cands)
+        if not by_device:
+            print(f"[timing2] {label}: the profiler missed library launches; "
+                  "the fastest by CUDA events")
+        return min(cands, key=lambda c: c[1] if by_device else c[0])
 
     lib_ms, _, lib_name = fanin_lib_row("fanin_matmul", f.x, f.w, f.bias,
                                         lambda got: 1e-4)
-    print(f"[timing2] fanin_matmul library: {lib_name}, the fastest on "
-          f"the device")
+    print(f"[timing2] fanin_matmul library: {lib_name}, the fastest")
     fanin_bytes = (4 * B * n_cols + nbytes(f.idx, f.w, f.bias) + 4 * B * N)
     with tf32(False):
         row("fanin_matmul", lambda: fanin_matmul(f.x, f.idx, f.w, f.bias),
@@ -2361,9 +2351,11 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
         check({}, "fanin_matmul", got.view(torch.int32),
               fanin_matmul(f.x, f.idx, f.w, f.bias).view(torch.int32),
               f"{n_rows} rows a block")
-        us, _ = device_us_seen(
+        us = device_time(
             lambda: launch_plan(f.x, f.idx, f.w, f.bias, out, alt),
-            "fanin_matmul_kernel")
+            "fanin_matmul_kernel").launch_us
+        require(us is not None, "the profiler saw no fanin_matmul_kernel "
+                f"at {n_rows} rows a block")
         print(f"[timing2] fanin_matmul at {n_rows} rows a block, "
               f"{-(-B // n_rows)} blocks: device {us:.2f} us per launch"
               + (" (the plan's)" if (n_rows, N) == (plan.rows, plan.span)
@@ -2377,8 +2369,10 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
         ws = f.w[:, :ks.shape[1]].contiguous()
         check_nan_equal({}, "fanin_matmul", fanin_matmul(xs, ks, ws, f.bias),
                         fanin_matmul_ref(xs, ks, ws, f.bias), label)
-        us, _ = device_us_seen(lambda: fanin_matmul(xs, ks, ws, f.bias),
-                               "fanin_matmul_kernel")
+        us = device_time(lambda: fanin_matmul(xs, ks, ws, f.bias),
+                         "fanin_matmul_kernel").launch_us
+        require(us is not None, "the profiler saw no fanin_matmul_kernel "
+                f"at {label}")
         print(f"[timing2] fanin_matmul bench shape, {label}: device "
               f"{us:.2f} us per launch on {card}")
 
@@ -2402,7 +2396,7 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
     b_ms, b_by = bound(n_bytes, 2 * B * N * K + B * N, F32_OPS_PER_S)
     print(f"[timing2] fanin_matmul bf16: {ms:.5f} ms (plain {plain_ms:.5f} "
           f"ms; library {lib_b_name} {lib_b_ms:.5f} ms, device "
-          f"{lib_b_us:.2f} us; bound {b_ms:.7f} ms by {b_by}: {n_bytes} "
+          f"{us_text(lib_b_us)}; bound {b_ms:.7f} ms by {b_by}: {n_bytes} "
           f"bytes; max abs err {errs.get('fanin_matmul', 0.0):.3g}) on "
           f"{card}")
 
@@ -2463,7 +2457,8 @@ def phase_timing2(torch, inp, counts, errs, card, b1_ops_per_s):
                      *((k, fn) for k, (fn, _) in chains.items()),
                      ("fanin_matmul bf16", fanin_bf16),
                      ("flash_attention bf16", bf16_fn)]:
-        dev, n = device_us(fn, name.split()[0] + "_kernel", 10)
+        t_ = device_time(fn, name.split()[0] + "_kernel")
+        dev, n = t_.launch_us, t_.seen
         print(f"[timing2] {name} kernel device time "
               + (f"{dev:.2f} us per launch ({n} launches)" if n else
                  "not seen by the profiler") + f" on {card}")
@@ -2658,6 +2653,7 @@ def flash_row(torch, name, q, k, v, kw, launches, err):
     operands read and the output written once). Returns (row, device µs
     a launch, SDPA device µs a call, bytes, flops); a device time the
     profiler did not see is None."""
+    from repro_torch.bench.profiled import device_time
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
@@ -2685,10 +2681,9 @@ def flash_row(torch, name, q, k, v, kw, launches, err):
            "ms": time_ms(fn), "plain_ms": time_ms(
                lambda: attention_ref(q, k, v, **kw), iters=20, reps=3),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa)}
-    dev_us, _ = device_us(fn, "flash_attention", 20)
-    sdpa_us, sdpa_n = device_us(sdpa, None, 20)
-    return (row, dev_us, sdpa_us * sdpa_n / 20 if sdpa_n else None, n_bytes,
-            flops)
+    dev_us = device_time(fn, "flash_attention", 20).launch_us
+    sdpa_us = device_time(sdpa, None, 20).call_us
+    return row, dev_us, sdpa_us, n_bytes, flops
 
 
 def us_text(us):
@@ -3346,6 +3341,7 @@ def phase_lm_train(torch, card, errs):
     through ``attention_ref`` at every shape the phase launched it at and
     at a ragged one; rows 7h / 7i of the kernels line at glm4's training
     shape beside SDPA."""
+    from repro_torch.bench.profiled import device_time
     import copy
     import gc
     import tempfile
@@ -3384,6 +3380,7 @@ def phase_lm_train(torch, card, errs):
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     key = lambda q, k, kw: attn_key(q, k, kw)  # noqa: E731
+    branches0 = dict(flash_attention_backward.branches)
     with record_attention(L, key) as (seen, calls):
         reset_launch_counts()
         for _ in range(LM_TRAIN_STEPS):
@@ -3403,6 +3400,10 @@ def phase_lm_train(torch, card, errs):
             f"{n_bwd} "
             f"launches in {LM_TRAIN_STEPS} steps, expected "
             f"{2 * LM_TRAIN_LAYERS} and {LM_TRAIN_LAYERS} a step")
+    wg_train = (flash_attention_backward.branches["wgmma"]
+                - branches0.get("wgmma", 0))
+    require(wg_train == n_bwd, f"lm_train {LM_TRAIN_ARCH}: {wg_train} of "
+            f"{n_bwd} backward launches took the wgmma branch")
     # every layer's wq, wk, wv took a non-zero gradient: its first moment
     mu = trainer.state.opt.mu
     attn_mu = [float(mu[i].abs().max()) for i, n in enumerate(
@@ -3566,10 +3567,17 @@ def phase_lm_train(torch, card, errs):
         for s in ((1, 100, 4, 64), (1, 100, 2, 64), (1, 100, 2, 64))) + (
         {"causal": True, "window": 0},)
     bwd_errs = {}
+    branches0 = dict(flash_attention_backward.branches)
     for k_, (q, k, v, kw) in shapes.items():
         require(q.device.type == "cuda", f"lm_train: {k_} recorded on "
                 f"{q.device}")
         flash_grads_close(torch, bwd_errs, str(k_), q, k, v, kw)
+    # both branches of the backward: wgmma (bf16 at dh 64 and 128) and
+    # the mma.sync kernels (float32, other dh)
+    took = {b_: flash_attention_backward.branches[b_] - branches0.get(b_, 0)
+            for b_ in ("wgmma", "mma")}
+    require(took["wgmma"] > 0 and took["mma"] > 0,
+            f"lm_train: backward branches reached {took}")
     kinds = sorted(str(k_) for k_ in shapes)
     require(any(k_[2] == "float32" for k_ in sseen)
             and any(k_[4] > 0 and k_[1][2] < k_[0][2] for k_ in sseen)
@@ -3608,7 +3616,6 @@ def phase_lm_train(torch, card, errs):
                 "against SDPA")
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         so, (qt, kt, vt), dt_, retain_graph=True)
-    sdpa_both = lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt_)  # noqa
     with torch.no_grad():
         row_f = {"name": name_f, "route": "cuda",
                  "source": KERNELS["flash_attention"][0],
@@ -3626,28 +3633,73 @@ def phase_lm_train(torch, card, errs):
                  gq, gk, gv, dout, **gkw), iters=5, reps=3),
              "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": time_ms(sdpa_bwd, 50)}
-    f_us, _ = device_us_seen(fwd, "flash_attention_kernel", 20)
-    bwd_us, n_seen = device_us(bwd, "flash_bwd", 10)
-    bwd_call_us = bwd_us * n_seen / 10 if n_seen else None
+    f_us = device_time(fwd, "flash_attention_kernel", 20).launch_us
+    require(f_us is not None, "lm_train: the profiler saw no flash forward")
     with torch.no_grad():
-        sf_us, sf_n = device_us(sdpa, None, 20)
-    sb_us, sb_n = device_us(sdpa_both, None, 10)
+        sf_call_us = device_time(sdpa, None, 20).call_us
+    # the tensor-parallel local shape (glm4-9b's heads a rank at
+    # --model-par 2): half the work of the full shape
+    tp = torch.Generator(device=dev).manual_seed(7)
+    tq, tk, tv = (torch.randn(s_, generator=tp, device=dev).to(torch.bfloat16)
+                  for s_ in ((b_, sq, h // 2, dh), (b_, sq, 1, dh),
+                             (b_, sq, 1, dh)))
+    tout, tlse, tdout, tp_err = flash_grads_close(
+        torch, errs, "flash_attention_backward glm4-9b tensor-parallel",
+        tq, tk, tv, gkw)
+    tp_bwd = lambda: flash_attention_backward(  # noqa: E731
+        tq, tk, tv, tout, tdout, tlse, **gkw)
+    tp_ms = time_ms(tp_bwd, 50)
+    # the backward's and SDPA's device times at both shapes, from the
+    # bench script in a process of its own: late in this script the
+    # profiler's sessions have missed launches of these calls
+    bench = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "src", "repro_torch", "bench",
+                                      "flash_backward.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(bench.returncode == 0, f"lm_train: flash_backward.py exit "
+            f"{bench.returncode}\n{bench.stderr[-3000:]}")
+    dev_b = json.loads(bench.stdout.strip().splitlines()[-1])["shapes"]
+    require(dev_b["full"]["shape"] == [b_, sq, sq, h, gk.shape[2], dh]
+            and dev_b["tp"]["shape"] == [b_, sq, sq, h // 2, 1, dh],
+            f"lm_train: the bench's shapes {dev_b['full']['shape']} "
+            f"{dev_b['tp']['shape']}")
+    bwd_call_us, tp_call_us = (dev_b[k_]["device_us"] for k_ in ("full", "tp"))
+    per_kernel = dev_b["full"]["kernels_us"]
+    sbo_call_us = dev_b["full"]["sdpa_bwd_device_us"]
+    sb_call_us = dev_b["full"]["sdpa_fwd_bwd_device_us"]
+    fin = dev_b["full"]["pass_bytes"]
     print(f"[lm_train] flash forward at glm4-9b's training shape (B {b_}, S "
           f"{sq}, H {h}, KV {gk.shape[2]}, dh {dh}, causal, bf16, with its "
           f"log-sum-exp): {row_f['ms']:.5f} ms, device {us_text(f_us)} a "
           f"launch; plain {row_f['plain_ms']:.5f} ms; SDPA forward "
           f"{row_f['library_ms']:.5f} ms (device "
-          f"{us_text(sf_us * sf_n / 20 if sf_n else None)} a call); bound "
+          f"{us_text(sf_call_us)} a call); bound "
           f"{f_ms:.6f} ms by {f_by} ({f_bytes} bytes, {4 * dh * pairs} FLOP); "
           f"max abs err {ferr:.4g}; {n_fwd} launches on {card}")
     print(f"[lm_train] flash backward at that shape: {row_b['ms']:.5f} ms, "
-          f"device {us_text(bwd_call_us)} a launch (3 kernels); plain "
+          f"device {us_text(bwd_call_us)} a launch ("
+          + "; ".join(f"{re.search(r'flash_bwd_[a-z]+', k_).group(0)} "
+                      f"{t_:.2f} us" for k_, t_ in sorted(per_kernel.items()))
+          + f"; the last pass's least bytes {fin['finish']}, "
+          f"{fin['finish_us']:.2f} us, of which {fin['slices']} float32 "
+          f"partials {fin['partials']} and the dQ accumulator "
+          f"{fin['dq_accumulator']}); plain "
           f"{row_b['plain_ms']:.5f} ms; SDPA backward "
-          f"{row_b['library_ms']:.5f} ms, SDPA forward + backward device "
-          f"{us_text(sb_us * sb_n / 10 if sb_n else None)} a call; bound "
+          f"{row_b['library_ms']:.5f} ms, device "
+          f"{us_text(sbo_call_us)} a call alone, "
+          f"SDPA forward + backward's "
+          f"{us_text(sb_call_us)} a call (device times from "
+          f"flash_backward.py); bound "
           f"{b_ms:.6f} ms by {b_by} ({b_bytes} bytes, {10 * dh * pairs} "
           f"FLOP); max abs err {berr:.4g}; {n_bwd} launches on {card}")
+    print(f"[lm_train] flash backward at the tensor-parallel local shape "
+          f"(H {h // 2}, KV 1, the rest as above): {tp_ms:.5f} ms, device "
+          f"{us_text(tp_call_us)} a launch ("
+          + (f"{tp_call_us / bwd_call_us:.3f} of the full shape's"
+             if tp_call_us and bwd_call_us else "its share not seen")
+          + f"); max abs err {tp_err:.4g} on {card}")
     del gq, gk, gv, out, lse, dout, qt, kt, vt, so, seen, sseen, shapes
+    del tq, tk, tv, tout, tlse, tdout
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[lm_train] phase {time.perf_counter() - t_phase:.1f}s")
@@ -4056,11 +4108,19 @@ def phase_logic_head(torch, card):
     print(f"[logic_head] phase {time.perf_counter() - t_phase:.1f}s")
 
 
-DRYRUN_CELLS = (("glm4-9b", "train_4k", "single"),
-                ("mixtral-8x22b", "decode_32k", "single"),
-                ("seamless-m4t-large-v2", "prefill_32k", "single"),
-                ("glm4-9b", "decode_32k", "multi"))
+# (arch, shape, mesh, --opts): mixtral-8x22b under the rule table (the
+# reference's default) and under moe_ep, asked for
+DRYRUN_CELLS = (("glm4-9b", "train_4k", "single", ""),
+                ("mixtral-8x22b", "decode_32k", "single", ""),
+                ("mixtral-8x22b", "decode_32k", "single", "moe_ep"),
+                ("seamless-m4t-large-v2", "prefill_32k", "single", ""),
+                ("glm4-9b", "decode_32k", "multi", ""))
 DRYRUN_TIMEOUT_S = 420
+
+
+def dryrun_tag(arch: str, shape: str, mesh: str, opts: str) -> str:
+    return "_".join([arch, shape, mesh] + ([opts.replace(",", "+")]
+                                          if opts else []))
 
 
 def phase_dryrun(card):
@@ -4069,8 +4129,9 @@ def phase_dryrun(card):
     ``python -m repro_torch.launch.dryrun`` and the pipeline twin
     (``repro_torch.examples.pipeline_dryrun``), each a process of its
     own, all at once. Each cell must end ``ok`` with FLOPs per device
-    above 0 and its argument bytes equal to the rule table's local
-    shards; the pipeline's argument bytes must be one stage's slab of
+    above 0, its argument bytes equal to the rule table's local shards
+    and its record's ``opts`` the options it was given (mixtral-8x22b
+    runs under the rule table and under ``moe_ep``); the pipeline's argument bytes must be one stage's slab of
     3 layers, the embedding, norm and head, and the tokens, its bubble
     15/79 and its ring shift a collective-permute each schedule step.
     Prints each cell's roofline row (H100 rates) and seconds."""
@@ -4081,11 +4142,11 @@ def phase_dryrun(card):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory() as out_dir:
-        cmds = {f"{a}_{s}_{m}": [sys.executable, "-m",
-                                 "repro_torch.launch.dryrun", "--arch", a,
-                                 "--shape", s, "--mesh", m, "--out",
-                                 out_dir, "--force"]
-                for a, s, m in DRYRUN_CELLS}
+        cmds = {dryrun_tag(*cell): [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+            "--shape", s, "--mesh", m, "--out",
+            os.path.join(out_dir, dryrun_tag(*cell)), "--force", "--opts", o]
+            for cell in DRYRUN_CELLS for a, s, m, o in [cell]}
         cmds["pipeline"] = [sys.executable, "-c",
                             "import json; from repro_torch.examples import "
                             "pipeline_dryrun as p; print(json.dumps(p.run()))"]
@@ -4116,13 +4177,15 @@ def phase_dryrun(card):
                 f.close()
         for k, (rc, log, _) in done.items():
             require(rc == 0, f"dryrun {k}: exit {rc}\n{log[-5000:]}")
-        for a, s, m in DRYRUN_CELLS:
-            tag = f"{a}_{s}_{m}"
-            with open(os.path.join(out_dir, tag + ".json")) as f:
+        for a, s, m, o in DRYRUN_CELLS:
+            tag = dryrun_tag(a, s, m, o)
+            with open(os.path.join(out_dir, tag, f"{a}_{s}_{m}.json")) as f:
                 rec = json.load(f)
             require(rec["status"] == "ok" and rec["flops_per_device"] > 0
                     and rec["argument_size_in_bytes"]
-                    == rec["rule_table_argument_bytes"],
+                    == rec["rule_table_argument_bytes"]
+                    and sorted(rec["opts"]) == sorted(filter(None,
+                                                             o.split(","))),
                     f"dryrun {tag}: {json.dumps(rec)[:2000]}")
             row = roofline.roofline_row(rec)
             print(f"[dryrun] {tag} (torch {rec['torch']}, "

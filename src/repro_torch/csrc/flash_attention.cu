@@ -67,11 +67,15 @@
 // Ragged Sq and Sk are masked in the kernel, nothing is padded in device
 // memory. exp2f with log2(e) folded into the scale, no fast math.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
 #include <initializer_list>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -226,6 +230,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 2^x by one MUFU.EX2 (flushes a result below 2^-126 to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t bits16(const __nv_bfloat16* p, bool in) {
@@ -693,9 +704,77 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 // ---- backward ---------------------------------------------------------------
 //
 // dQ, dK and dV of the forward above from q, k, v, out, dout and the
-// forward's per-row log-sum-exp, in three launches on one stream, with
-// float32 sums and no atomics (every output element is written by one
-// thread, in a fixed order):
+// forward's per-row log-sum-exp. Two branches, chosen by the entry point:
+// the wgmma branch for bf16 at dh 64 or 128 with 16-byte aligned operands
+// (the training path's case), the mma.sync kernels for the rest (float32,
+// other dh, misaligned operands).
+//
+// What bounds it on this card. A kept (query row, key) pair costs 10 dh
+// operations: S = Q K^T, dP = dout V^T, dV += P^T dout, dK += dS^T Q and
+// dQ += dS K, 2 dh each. At glm4-9b's training shape (B 4, S 1,024, H 32,
+// KV 2, dh 128, causal) that is 8.6e10 operations, 87 us at the bf16
+// tensor-core rate (989 TFLOP/s), against 43 us for its bytes (q, k, v,
+// out and dout read, dq, dk and dv written once): the tensor cores bound
+// it, and only wgmma reaches their full rate.
+//
+// The wgmma branch, three launches on one stream:
+//  1. flash_bwd_prep_kernel: D = sum_d dout * out and lse * log2(e) per
+//     row, 64 rows of a (b, head) in 512 contiguous bytes for the main
+//     kernel's bulk copy; it zeroes the float32 dQ accumulator;
+//  2. flash_bwd_wgmma_kernel, as the points below say;
+//  3. flash_bwd_finish_kernel: dq from the accumulator, dk and dv from the
+//     partials, in bf16.
+// Its design:
+//  * Parallel over query heads. A block owns 64 keys of one (b, KV head)
+//    and HB = 2 query heads of its group (1 where the group is odd), one
+//    warpgroup a head, side by side: no warpgroup walks more than its own
+//    head's row steps of 64 (16 at glm4's shape, where the mma.sync
+//    kernel's heaviest block walked 512 for the 16 heads in series), and
+//    glm4's shape has 1,024 blocks.
+//  * The grid walks (b, KV head, head pair) units in chunks of about one
+//    wave, each chunk's key blocks heaviest first (under a causal mask the
+//    first key block sees every row): the blocks in flight share a few
+//    heads' Q, dout and dQ tiles in L2 and each chunk ends on light ones.
+//  * The group's sum in float32, in a fixed order: a block's warpgroups
+//    add their dK and dV through shared memory (warpgroup 0 + 1) into one
+//    float32 partial for its head pair, and the finish pass sums the G /
+//    HB partials in order 0, 1, ...: two launches give dk and dv bit for
+//    bit. The partials cost 2 x (G / HB) x B x Sk x KV x dh x 4 bytes,
+//    written once and read once (67 MB at glm4's shape).
+//  * S and dP once per kept pair: dQ = dS K comes from the dS that feeds
+//    dK, a 64-column chunk at a time, staged in shared memory as float32
+//    and added to the float32 accumulator in device memory by one TMA
+//    bulk reduction (cp.reduce.async.bulk .add.f32), not by per-thread
+//    atomics. The key blocks' reductions land in any order, so dq may
+//    differ from run to run in its last bits (within the tests' bf16
+//    tolerance).
+//  * wgmma (m64n64k16, bf16 operands, float32 sums) for every product,
+//    on 64-row warpgroup tiles: S^T = K Q^T and dP^T = V dout^T with both
+//    operands in shared memory; dV += P^T dout and dK += dS^T Q with P^T
+//    and dS^T as the register A operand (the S^T accumulator's layout is
+//    mma.sync's A fragment's), dout and Q read MN-major from the tiles
+//    that fed S^T; dQ += dS K with dS^T written to shared memory as dS's
+//    MN-major A operand and K read MN-major. P and dS round to bf16 as the
+//    A operand, where the mma.sync kernels round them.
+//  * Asynchronous copies: K and V arrive once by TMA; each warpgroup's Q
+//    and dout steps and its rows' lse2 and D (one 512-byte bulk copy a
+//    step, not a load per element) arrive by TMA into a ring of two
+//    stages with an mbarrier each, step j + 1 issued by the warpgroup's
+//    thread 0 as step j starts. Tiles are 64 rows of 128 bytes in TMA's
+//    128-byte swizzle, which the wgmma descriptors read as they lie. No
+//    block-wide barrier in the loop: each warpgroup syncs its own 128
+//    threads (named barriers) twice a step (its stage and dS^T tile are
+//    free; dS^T is written) and twice a dQ chunk (the staging tile is
+//    free; it is written).
+//  * Kept from the mma.sync kernels: D as a row pass, dV's share from
+//    fully masked rows (added in the finish pass), ragged Sq and Sk (TMA
+//    reads rows past the end as zero and the mask drops them), the scale
+//    on dK and dQ.
+//
+// The mma.sync kernels (float32 as three TF32 passes, dh up to 128 in
+// templates of 16 to 128, any alignment), three launches with float32
+// sums and no atomics (every output element is written by one thread,
+// in a fixed order):
 //  1. D = sum_d dout * out per (b, query row, head), a warp a row;
 //  2. dK, dV: a block of kBwdWarps warps owns kBwdRows keys of one
 //     (b, KV head), a warp 16 of them, K and V staged once in shared
@@ -711,6 +790,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //  3. dQ: a block owns kBwdRows query rows of one head, a warp 16, Q and
 //     dout staged once; it walks its rows' key range in steps (K and V
 //     double-buffered): S = Q K^T, dP = dout V^T, dS as above, dQ += dS K.
+//     (S and dP twice a kept pair: these kernels serve small and float32
+//     shapes, off the bf16 training path.)
 // dK and dQ are scaled by 1/sqrt(dh) when they are stored. A query row
 // whose every key is masked (a window with i >= Sk + window - 1) took
 // the mean of v forward: it gives dQ = 0, nothing to dK, and
@@ -984,6 +1065,541 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---- the backward's wgmma branch (bf16, dh 64 or 128) -----------------
+
+constexpr int kWgTile = 64 * 64 * 2;         // bytes: 64 rows of 64 bf16
+constexpr int kWgStages = 2;                 // Q / dout steps in a ring
+
+constexpr int kWgAcc = 64 * 64 * 4;          // bytes: a float32 dQ chunk
+
+// Shared memory of a block, byte offsets, every tile 1024-aligned: the
+// block's K and V (NC tiles of 64 columns each), then per warpgroup a
+// ring of kWgStages steps (Q, dout, then lse * log2(e) and D of the
+// step's 64 rows, 512 bytes in a 1024 slot), its dS^T tile and the
+// float32 dQ chunk the TMA unit adds to device memory; the mbarriers
+// last.
+template <int NC>
+struct WgSmem {
+  static constexpr int kK = 0;
+  static constexpr int kV = NC * kWgTile;
+  static constexpr int kHeads = 2 * NC * kWgTile;
+  static constexpr int kStage = 2 * NC * kWgTile + 1024;
+  static constexpr int kLd = 2 * NC * kWgTile;          // within a stage
+  static constexpr int kDs = kWgStages * kStage;        // within a head
+  static constexpr int kAcc = kDs + kWgTile;
+  static constexpr int kHead = kAcc + kWgAcc;
+  static constexpr int kBars = kHeads + 2 * kHead;
+  static constexpr int kBytes = kBars + 64 + 1024;      // + 1024 to align
+};
+
+// D = sum_d dout * out of every (b, head, row), a warp a row, into the
+// staged layout [b][head][row block][lse2 | D][64] with lse2 = lse *
+// log2(e); rows past Sq get lse2 = +inf and D = 0 (their P is 0). The
+// warp also zeroes dh floats of the dQ accumulator (as many as a row).
+template <int NC>
+__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      float* __restrict__ ld,
+                                      float* __restrict__ dq_acc, int B,
+                                      int H, int Sq, int n_rb) {
+  constexpr int dh = NC * 64;
+  const int slot = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int rows = n_rb * 64;
+  if (slot >= B * H * rows) return;
+  const int bh = slot / rows, i = slot - bh * rows;
+  const int b = bh / H, h = bh - b * H;
+  float d = 0.0f, l2 = __int_as_float(0x7f800000);
+  // NC float4 of zeros and NC bf16 pairs of each operand a lane
+#pragma unroll
+  for (int x = 0; x < NC; ++x)
+    reinterpret_cast<float4*>(dq_acc + size_t(slot) * dh)[lane + 32 * x] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < Sq) {
+    const size_t row = (size_t(b) * Sq + i) * H + h;
+    const __nv_bfloat162* o =
+        reinterpret_cast<const __nv_bfloat162*>(out + row * dh);
+    const __nv_bfloat162* g =
+        reinterpret_cast<const __nv_bfloat162*>(dout + row * dh);
+#pragma unroll
+    for (int x = 0; x < NC; ++x) {
+      const float2 a = __bfloat1622float2(o[lane + 32 * x]);
+      const float2 c = __bfloat1622float2(g[lane + 32 * x]);
+      d += a.x * c.x + a.y * c.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    l2 = lse[size_t(bh) * Sq + i] * kLog2e;
+  }
+  if (lane == 0) {
+    float* blk = ld + (size_t(bh) * n_rb + i / 64) * 128;
+    blk[i % 64] = l2;
+    blk[64 + i % 64] = d;
+  }
+}
+
+// One block: 64 keys of one (b, KV head) and HB query heads of its
+// group (HB = 2 when the group is even), one warpgroup a head, each
+// walking its head's row steps of 64. A step: S^T = K Q^T and dP^T =
+// V dout^T (wgmma, both operands in shared memory), P^T = exp2(scale
+// log2(e) S^T - lse2) and dS^T = P^T (dP^T - D) in registers, then
+// dV += P^T dout and dK += dS^T Q (wgmma, P^T and dS^T as the register
+// A operand, rounded to bf16) and dQ = dS K (dS^T through shared
+// memory), one 64-column chunk at a time staged in shared memory and
+// added to the float32 dQ accumulator by one TMA bulk reduction. The
+// warpgroups' dK and dV meet in shared memory (warpgroup 0 + 1) and go
+// out as the block's float32 partial, one per (head slice, b, KV head).
+template <int NC>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ ld,
+                       float* __restrict__ dq_acc, float* __restrict__ part,
+                       int B, int H, int KV, int Sq, int Sk, float scale,
+                       int causal, int window, int HB, int chunk) {
+  using namespace hopper;
+  using L = WgSmem<NC>;
+  constexpr int dh = NC * 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int G = H / KV, n_hs = G / HB;
+  // The grid walks (b, KV head, head slice) units in chunks of `chunk`,
+  // and each chunk's key blocks from the first (under a causal mask the
+  // heaviest) to the last: the blocks in flight share a few heads' Q,
+  // dout and dQ tiles in L2, and each chunk ends on its lightest blocks.
+  const int n_kb = (Sk + 63) / 64;
+  const int units = B * KV * n_hs;
+  const int first = (blockIdx.x / (chunk * n_kb)) * chunk;
+  const int width = min(chunk, units - first);
+  const int within = blockIdx.x - first * n_kb;
+  const int kb = within / width;
+  int rem = first + within % width;
+  const int hs = rem % n_hs;
+  rem /= n_hs;
+  const int kvh = rem % KV, b = rem / KV;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int w = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  const int h = kvh * G + hs * HB + wg;
+  const int k0 = kb * 64;
+  const int n_rb = (Sq + 63) / 64;
+
+  unsigned char* s_k = smem + L::kK;
+  unsigned char* s_v = smem + L::kV;
+  unsigned char* mine = smem + L::kHeads + wg * L::kHead;
+  unsigned char* s_ds = mine + L::kDs;
+  float* s_acc = reinterpret_cast<float*>(mine + L::kAcc);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = bars + 1 + 2 * wg;            // this head's ring
+
+  // the query rows these keys can see, in steps of 64
+  const int k_last = min(Sk, k0 + 64) - 1;
+  const int i_lo = causal ? k0 : 0;
+  const int i_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int n = i_hi > i_lo ? (i_hi - i_lo + 63) / 64 : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + 2 * HB; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fetch = [&](int j) {                      // thread 0 of the head
+    uint64_t* bar = full + (j & 1);
+    unsigned char* st = mine + (j & 1) * L::kStage;
+    const int i0 = i_lo + j * 64;
+    mbar_expect_tx(bar, 2 * NC * kWgTile + 512);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      tma_load_4d(st + cc * kWgTile, &tq, bar, cc * 64, h, i0, b);
+      tma_load_4d(st + (NC + cc) * kWgTile, &tdo, bar, cc * 64, h, i0, b);
+    }
+    bulk_load(st + L::kLd, ld + ((size_t(b) * H + h) * n_rb + i0 / 64) * 128,
+              512, bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars, 2 * NC * kWgTile);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      tma_load_4d(s_k + cc * kWgTile, &tk, bars, cc * 64, kvh, k0, b);
+      tma_load_4d(s_v + cc * kWgTile, &tv, bars, cc * 64, kvh, k0, b);
+    }
+  }
+  if (t == 0 && n > 0) fetch(0);
+
+  float dk[NC][32], dv[NC][32];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dk[cc][r] = dv[cc][r] = 0.0f;
+  const float cs = scale * kLog2e;
+  const int kl = 16 * w + g;            // this thread's keys: kl, kl + 8
+  mbar_wait(bars, 0);
+
+  for (int j = 0; j < n; ++j) {
+    // every warp of the head is done with step j - 1: its stage and the
+    // dS^T tile may be written again
+    named_barrier(1 + wg, 128);
+    if (t == 0 && j + 1 < n) fetch(j + 1);
+    unsigned char* st = mine + (j & 1) * L::kStage;
+    mbar_wait(full + (j & 1), (j >> 1) & 1);
+    const unsigned char* s_q = st;
+    const unsigned char* s_do = st + NC * kWgTile;
+    const float* s_ld = reinterpret_cast<const float*>(st + L::kLd);
+    const int i0 = i_lo + j * 64;
+
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(sc, desc128(s_k + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(s_q + cc * kWgTile + kk * 32, 0, 1024),
+                       cc | kk);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(dp, desc128(s_v + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(s_do + cc * kWgTile + kk * 32, 0, 1024),
+                       cc | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // element 4 nb + r: key kl + 8 (r >> 1), row i0 + 8 nb + 2c + (r & 1)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(s_ld + 8 * nb + 2 * c);
+      const float2 dd =
+          *reinterpret_cast<const float2*>(s_ld + 64 + 8 * nb + 2 * c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = k0 + kl + 8 * (r >> 1);
+        const int i = i0 + 8 * nb + 2 * c + (r & 1);
+        const bool keep = i < Sq && key < Sk && (!causal || key <= i) &&
+                          (window <= 0 || key > i - window);
+        float pr = 0.0f, ds = 0.0f;
+        if (keep) {
+          pr = ex2(sc[4 * nb + r] * cs - (r & 1 ? l2.y : l2.x));
+          ds = pr * (dp[4 * nb + r] - (r & 1 ? dd.y : dd.x));
+        }
+        sc[4 * nb + r] = pr;
+        dp[4 * nb + r] = ds;
+      }
+    }
+    // P^T and dS^T as A fragments, k16 step kk = rows 16 kk .. 16 kk + 15
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        da[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      }
+    // dS^T to shared memory as [key][row]: dS's MN-major A operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kl + 8 * (e & 1), row = 16 * kk + 8 * (e >> 1) + 2 * c;
+        *reinterpret_cast<uint32_t*>(s_ds +
+                                     swizzle128(key * 128 + row * 2)) =
+            da[kk][e];
+      }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dv[cc], pa[kk],
+                    desc128(s_do + cc * kWgTile + kk * 2048, kWgTile, 1024),
+                    1);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<1>(dk[cc], da[kk],
+                    desc128(s_q + cc * kWgTile + kk * 2048, kWgTile, 1024),
+                    1);
+    wgmma_commit();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<1, 1>(dq, desc128(s_ds + kk * 2048, kWgTile, 1024),
+                       desc128(s_k + cc * kWgTile + kk * 2048, kWgTile, 1024),
+                       kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // the chunk to shared memory as 64 rows of 64 floats, the 16-byte
+      // column group q of row r at q ^ (r % 16) (the accumulator's tile
+      // layout: two rows' stores share no bank more than a warp's 256
+      // bytes need), once the last reduction has read it
+      if (t == 0) bulk_wait<1>();
+      named_barrier(1 + wg, 128);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = kl + 8 * hr, col = 8 * nb + 2 * c;
+          *reinterpret_cast<float2*>(
+              s_acc + row * 64 + (((col >> 2) ^ (row & 15)) << 2) + (col & 3)) =
+              make_float2(dq[4 * nb + 2 * hr], dq[4 * nb + 2 * hr + 1]);
+        }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (t == 0)
+        bulk_reduce_add(
+            dq_acc + (((size_t(b) * H + h) * n_rb + i0 / 64) * NC + cc) * 4096,
+            s_acc, kWgAcc);
+    }
+  }
+  if (t == 0) bulk_wait<0>();
+
+  // the heads' sum in a fixed order: warpgroup 1's dK, dV through
+  // shared memory (its own area, its ring drained) into warpgroup 0's
+  if (HB == 2) {
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem + L::kHeads + L::kHead);
+    if (wg == 1) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          red[((2 * cc) * 32 + r) * 128 + t] = dk[cc][r];
+          red[((2 * cc + 1) * 32 + r) * 128 + t] = dv[cc][r];
+        }
+    }
+    __syncthreads();
+    if (wg == 1) return;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        dk[cc][r] += red[((2 * cc) * 32 + r) * 128 + t];
+        dv[cc][r] += red[((2 * cc + 1) * 32 + r) * 128 + t];
+      }
+  }
+  // the partial: part[dK | dV][head slice][b][kvh][key][dh], float32
+  const int sk_pad = ((Sk + 63) / 64) * 64;
+  const size_t slab = size_t(n_hs) * B * KV * sk_pad * dh;
+  float* pk = part + (((size_t(hs) * B + b) * KV + kvh) * sk_pad + k0) * dh;
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const size_t o = size_t(kl + 8 * hr) * dh + cc * 64 + 8 * nb + 2 * c;
+        *reinterpret_cast<float2*>(pk + o) =
+            make_float2(dk[cc][4 * nb + 2 * hr], dk[cc][4 * nb + 2 * hr + 1]);
+        *reinterpret_cast<float2*>(pk + slab + o) =
+            make_float2(dv[cc][4 * nb + 2 * hr], dv[cc][4 * nb + 2 * hr + 1]);
+      }
+}
+
+// The last pass, four elements a thread: dq = bf16(scale * dQ
+// accumulator) for blocks below n_dq (the accumulator in tiles of 64
+// rows x 64 columns, [b][head][row block][column block], the 16-byte
+// group q of row r at q ^ (r % 16)), then dk = bf16(scale * sum of the
+// head slices' partials) and dv = bf16(sum + round(1/Sk) * the dout of
+// rows whose every key is masked), the slices summed in order 0, 1, ...
+template <int NC>
+__global__ void flash_bwd_finish_kernel(
+    const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, const __nv_bfloat16* __restrict__ dout,
+    int B, int H, int KV, int Sq, int Sk, int n_hs, float scale, int window,
+    int n_dq) {
+  constexpr int dh = NC * 64;
+  const int tid = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) < n_dq) {
+    const int e = (blockIdx.x * blockDim.x + tid) * 4;
+    if (e >= B * Sq * H * dh) return;
+    const int d = e % dh, r = e / dh;            // r = (b * Sq + i) * H + h
+    const int h = r % H, bi = r / H, i = bi % Sq, b = bi / Sq;
+    const int row = i % 64, q = (d % 64) / 4;
+    const float4 a = *reinterpret_cast<const float4*>(
+        dq_acc + ((size_t(b * H + h) * ((Sq + 63) / 64) + i / 64) * NC +
+                  d / 64) * 4096 + row * 64 + (q ^ (row & 15)) * 4);
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dq + e);
+    o[0] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    o[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+    return;
+  }
+  const int e = ((blockIdx.x - n_dq) * blockDim.x + tid) * 4;
+  if (e >= B * Sk * KV * dh) return;
+  const int d = e % dh, r = e / dh;       // r = (b * Sk + key) * KV + kvh
+  const int kvh = r % KV, bk = r / KV, key = bk % Sk, b = bk / Sk;
+  const int sk_pad = ((Sk + 63) / 64) * 64;
+  const size_t stride = size_t(B) * KV * sk_pad * dh;   // one head slice
+  const size_t slab = stride * n_hs;
+  const float* p = part + (size_t(b * KV + kvh) * sk_pad + key) * dh + d;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int s = 0; s < n_hs; ++s) {
+    const float4 a = *reinterpret_cast<const float4*>(p + s * stride);
+    const float4 v = *reinterpret_cast<const float4*>(p + slab + s * stride);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += v.x; sv.y += v.y; sv.z += v.z; sv.w += v.w;
+  }
+  const int i_dead = window > 0 ? Sk + window - 1 : Sq;
+  if (i_dead < Sq) {
+    const float p0 = round_as(1.0f / static_cast<float>(Sk), __nv_bfloat16());
+    const int G = H / KV;
+    float dead[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int hh = kvh * G; hh < kvh * G + G; ++hh)
+      for (int i = i_dead; i < Sq; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          dead[x] += __bfloat162float(
+              dout[(size_t(b) * Sq + i) * H * dh + size_t(hh) * dh + d + x]);
+    sv.x += p0 * dead[0]; sv.y += p0 * dead[1];
+    sv.z += p0 * dead[2]; sv.w += p0 * dead[3];
+  }
+  __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk + e);
+  __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv + e);
+  ok[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+  ok[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+  ov[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+// cuTensorMapEncodeTiled from the driver, found once at run time (the
+// library links only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (B, rows, heads, dh) bf16 as a 4-d map with boxes of 64 columns x 64
+// rows of one head, 128-byte swizzled; rows past the end read as zero
+bool row_map(CUtensorMap* m, const void* base, int B, int rows, int heads,
+             int dh) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
+                              cuuint64_t(rows), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(dh) * 2,
+                                 cuuint64_t(heads) * dh * 2,
+                                 cuuint64_t(rows) * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma branch takes bf16 at dh 64 or 128 with 16-byte aligned
+// operands (TMA's rule) and fewer than 2^31 elements of q (its rows
+// padded to 64) and of k (its passes index with 32 bits); everything
+// else takes the mma.sync kernels.
+bool wgmma_branch(std::initializer_list<const void*> ptrs, int B, int H,
+                  int KV, int Sq, int Sk, int dh, int bf16) {
+  if (!bf16 || (dh != 64 && dh != 128)) return false;
+  if ((long long)B * H * ((Sq + 63) / 64 * 64) * dh >= (1ll << 31) ||
+      (long long)B * KV * Sk * dh >= (1ll << 31))
+    return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
+}
+
+// workspace layout of the wgmma branch, in floats, each part 64-aligned
+struct WgWork {
+  size_t ld, dq, part, total;
+  WgWork(int B, int H, int KV, int Sq, int Sk, int dh) {
+    auto up = [](size_t x) { return (x + 63) & ~size_t(63); };
+    const int G = H / KV, HB = G % 2 == 0 ? 2 : 1;
+    const size_t n_rb = (Sq + 63) / 64, sk_pad = ((Sk + 63) / 64) * 64;
+    ld = 0;
+    dq = up(size_t(B) * H * n_rb * 128);
+    part = dq + up(size_t(B) * H * n_rb * 64 * dh);
+    total = part + up(2 * size_t(G / HB) * B * KV * sk_pad * dh);
+  }
+};
+
+template <int NC>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* out, const void* dout,
+                             const float* lse, float* work, void* dq,
+                             void* dk, void* dv, int B, int H, int KV,
+                             int Sq, int Sk, float scale, int causal,
+                             int window, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int dh = NC * 64;
+  constexpr int smem = WgSmem<NC>::kBytes;
+  static bool ready = false;            // the opt-in above 48 KB, once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_wgmma_kernel<NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!row_map(&tq, q, B, Sq, H, dh) || !row_map(&tk, k, B, Sk, KV, dh) ||
+      !row_map(&tv, v, B, Sk, KV, dh) || !row_map(&tdo, dout, B, Sq, H, dh))
+    return cudaErrorInvalidValue;
+  const WgWork ws(B, H, KV, Sq, Sk, dh);
+  float* ld = work + ws.ld;
+  float* dq_acc = work + ws.dq;
+  float* part = work + ws.part;
+  const int n_rb = (Sq + 63) / 64;
+  const int slots = B * H * n_rb * 64;
+  flash_bwd_prep_kernel<NC><<<(slots + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf*>(out), static_cast<const bf*>(dout), lse, ld,
+      dq_acc, B, H, Sq, n_rb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int G = H / KV, HB = G % 2 == 0 ? 2 : 1;
+  const int n_kb = (Sk + 63) / 64;
+  const long long blocks = (long long)n_kb * B * KV * (G / HB);
+  // about one wave of blocks a chunk of units (one block an SM)
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return cudaGetLastError();
+  const int chunk = max(1, sms / n_kb);
+  flash_bwd_wgmma_kernel<NC><<<static_cast<unsigned>(blocks), 128 * HB,
+                               smem, stream>>>(
+      tq, tk, tv, tdo, ld, dq_acc, part, B, H, KV, Sq, Sk, scale, causal,
+      window, HB, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_dq = (B * Sq * H * dh / 4 + 255) / 256;
+  const int n_kv = (B * Sk * KV * dh / 4 + 255) / 256;
+  flash_bwd_finish_kernel<NC><<<n_dq + n_kv, 256, 0, stream>>>(
+      dq_acc, static_cast<bf*>(dq), part, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), static_cast<const bf*>(dout), B, H, KV, Sq, Sk,
+      G / HB, scale, window, n_dq);
+  return cudaGetLastError();
+}
+
 template <typename T, int DHP>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
@@ -1080,27 +1696,50 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                          window, cw_shift, s);
 }
 
+// The backward's workspace in bytes, and its branch (1: wgmma, 0: the
+// mma.sync kernels) in *branch, for these operands.
+long long flash_attention_backward_workspace(const void* q, const void* k,
+                                             const void* v, const void* out,
+                                             const void* dout, int B, int H,
+                                             int KV, int Sq, int Sk, int dh,
+                                             int bf16, int* branch) {
+  if (KV <= 0 || H % KV || Sk <= 0) return -1;
+  const bool wg =
+      wgmma_branch({q, k, v, out, dout}, B, H, KV, Sq, Sk, dh, bf16);
+  *branch = wg ? 1 : 0;
+  if (wg) return static_cast<long long>(WgWork(B, H, KV, Sq, Sk, dh).total) * 4;
+  return (long long)B * H * Sq * 4;              // D
+}
+
 // The backward: q, k, v, out and dout as the forward's (dout shaped and
-// typed as out), lse the forward's (B, H, Sq) float32, D a float32
-// (B, H, Sq) workspace; writes dq (as q), dk and dv (as k). Same limits
-// as the forward. Returns a cudaError_t.
+// typed as out), lse the forward's (B, H, Sq) float32, work a device
+// buffer of flash_attention_backward_workspace bytes (256-byte aligned);
+// writes dq (as q), dk and dv (as k). Same limits as the forward.
+// Returns a cudaError_t.
 int flash_attention_backward_launch(const void* q, const void* k,
                                     const void* v, const void* out,
                                     const void* dout, const void* lse,
-                                    void* D, void* dq, void* dk, void* dv,
+                                    void* work, void* dq, void* dk, void* dv,
                                     int B, int H, int KV, int Sq, int Sk,
                                     int dh, float scale, int causal,
                                     int window, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV || Sk <= 0) return cudaErrorInvalidValue;
-  const int cw_shift = copy_shift({q, k, v, dout}, dh, bf16 ? 2 : 4);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(D);
+  float* w = static_cast<float*>(work);
+  if (wgmma_branch({q, k, v, out, dout}, B, H, KV, Sq, Sk, dh, bf16)) {
+    if (dh == 64)
+      return launch_bwd_wgmma<1>(q, k, v, out, dout, l, w, dq, dk, dv, B, H,
+                                 KV, Sq, Sk, scale, causal, window, s);
+    return launch_bwd_wgmma<2>(q, k, v, out, dout, l, w, dq, dk, dv, B, H,
+                               KV, Sq, Sk, scale, causal, window, s);
+  }
+  const int cw_shift = copy_shift({q, k, v, dout}, dh, bf16 ? 2 : 4);
   if (bf16)
-    return dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, d, dq, dk, dv,
+    return dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, w, dq, dk, dv,
                                        B, H, KV, Sq, Sk, dh, scale, causal,
                                        window, cw_shift, s);
-  return dispatch_bwd<float>(q, k, v, out, dout, l, d, dq, dk, dv, B, H, KV,
+  return dispatch_bwd<float>(q, k, v, out, dout, l, w, dq, dk, dv, B, H, KV,
                              Sq, Sk, dh, scale, causal, window, cw_shift, s);
 }
 

@@ -90,10 +90,12 @@ def _counts(before) -> Dict[str, int]:
 
 
 def moe(cfg, p_np: Dict[str, np.ndarray], x_np: np.ndarray,
-        cot_np: np.ndarray, shape, device: str) -> Dict[str, Any]:
-    """The MoE block under ``moe_ep`` (expert parallelism with explicit
-    collectives) against the unplaced block: output and the gradients of
-    sum(out * cot) with respect to x and every weight."""
+        cot_np: np.ndarray, shape, device: str, moe_ep: bool = True
+        ) -> Dict[str, Any]:
+    """The placed MoE block against the unplaced block: output and the
+    gradients of sum(out * cot) with respect to x and every weight.
+    Under ``moe_ep`` (expert parallelism with explicit collectives), or
+    without it, the rule table's placement alone."""
     from repro_torch.models import layers as L
     names = sorted(p_np)
     p = {k: torch.from_numpy(p_np[k]).to(device).requires_grad_(True)
@@ -111,7 +113,7 @@ def moe(cfg, p_np: Dict[str, np.ndarray], x_np: np.ndarray,
     xp = sh.from_host(x_np, sh.batch_shardings(mesh, {"x": x_np})["x"]
                       ).requires_grad_(True)
     before = dict(sh.COUNTS)
-    with opts(moe_ep=True), sh.use_mesh(mesh), torch.enable_grad():
+    with opts(moe_ep=moe_ep), sh.use_mesh(mesh), torch.enable_grad():
         got = L.moe(xp, pp, cfg)
         g_got = _grads((got * cot).sum(), [xp] + [pp[k] for k in names])
     return {"unplaced": host(ref), "placed": host(got),

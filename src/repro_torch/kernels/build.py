@@ -43,7 +43,10 @@ SIGNATURES = {
     "flash_attention_launch": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     "flash_attention_backward_launch": [_P] * 10 + [_I] * 6 + [_F]
     + [_I] * 3 + [_P],
+    "flash_attention_backward_workspace": [_P] * 5 + [_I] * 7 + [_P],
 }
+# entry points that return something other than a cudaError_t
+RESTYPES = {"flash_attention_backward_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -137,7 +140,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -18,12 +18,17 @@ tensors.
   flash_attention_forward  — the forward returning (out, lse), the
                              per-row log-sum-exp the backward reads.
   flash_attention_backward — dq, dk, dv from q, k, v, out, dout and lse;
-                             counts its launches in ``.launches``.
+                             counts its launches in ``.launches`` and
+                             each branch's in ``.branches`` ("wgmma":
+                             bf16 at dh 64 or 128 with 16-byte aligned
+                             operands; "mma": the rest).
 
 A failed build or launch raises; nothing falls back to a plain version.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -36,6 +41,7 @@ from .ref import attention_backward_ref, attention_lse_ref, attention_ref
 MAX_DH = 128
 ROWS_PER_BLOCK = 16          # query rows per thread block of the forward
 BWD_ROWS_PER_BLOCK = 64      # keys (dK, dV) or rows (dQ) a backward block
+BWD_BRANCHES = ("mma", "wgmma")
 MAX_GRID = (1 << 31) - 1
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -168,21 +174,42 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     sk, kv = k.shape[1], k.shape[2]
-    if max(-(-sq // BWD_ROWS_PER_BLOCK) * b * h,
-           -(-sk // BWD_ROWS_PER_BLOCK) * b * kv,
-           -(-b * sq * h // 8)) > MAX_GRID:
+    lib = build.library()
+    branch = ctypes.c_int(0)
+    work_bytes = lib.flash_attention_backward_workspace(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), b, h, kv, sq, sk, dh, int(q.dtype == torch.bfloat16),
+        ctypes.byref(branch))
+    if work_bytes < 0:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}: no "
+                         "backward launch")
+    if max(_backward_grid(b, sq, sk, h, kv, dh)) > MAX_GRID:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} exceed "
                          "the grid")
-    d = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    err = build.library().flash_attention_backward_launch(
+    work = torch.empty(work_bytes, dtype=torch.uint8, device=dev)
+    err = lib.flash_attention_backward_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), d.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, kv, sq, sk, dh,
         1.0 / math.sqrt(dh), int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_of(dev))
     build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1
+    flash_attention_backward.branches[BWD_BRANCHES[branch.value]] += 1
     return dq, dk, dv
 
 
+def _backward_grid(b: int, sq: int, sk: int, h: int, kv: int, dh: int):
+    """Blocks of each backward launch, of both branches: the wgmma
+    kernel's (64-key block, b, KV head, head slice) items (at most one
+    a query head), its row pass (8 rows a block) and last pass (1,024
+    elements a block); the mma.sync kernels' key and row blocks."""
+    rows_padded = -(-sq // 64) * 64
+    return (-(-sk // 64) * b * h, -(-b * h * rows_padded // 8),
+            -(-(b * sq * h + b * sk * kv) * dh // 1024),
+            -(-sq // BWD_ROWS_PER_BLOCK) * b * h,
+            -(-sk // BWD_ROWS_PER_BLOCK) * b * kv, -(-b * sq * h // 8))
+
+
 flash_attention_backward.launches = 0
+flash_attention_backward.branches = collections.Counter()

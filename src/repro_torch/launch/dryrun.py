@@ -454,24 +454,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool) -> Dict:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped",
                 "reason": "full-attention arch at 500k context"}
-    # DTensor cannot run the MoE block's dispatch under the rule table
-    # at (16, 16) (a view of a non-contiguous local shard in the expert
-    # einsum, a scatter into a replicated buffer it cannot propagate):
-    # the port's placed MoE is the expert-parallel branch
-    prev = sh.set_opts(moe_ep=True) if cfg.family == "moe" else {}
     t0 = time.perf_counter()
-    try:
-        with fake_world(512 if multi_pod else 256):
-            mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-            with _fake_mode(), sh.use_mesh(mesh):
-                fn, args = build_cell(cfg, shape, mesh)
-                t_build = time.perf_counter() - t0
-                expected = rule_table_bytes(shape, mesh, args)
-                cost = count_step(fn, args)
-            n_dev = mesh.size()
-            opts = {k: v for k, v in sh.OPTS.items() if v}
-    finally:
-        sh.set_opts(**prev)
+    with fake_world(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        with _fake_mode(), sh.use_mesh(mesh):
+            fn, args = build_cell(cfg, shape, mesh)
+            t_build = time.perf_counter() - t0
+            expected = rule_table_bytes(shape, mesh, args)
+            cost = count_step(fn, args)
+        n_dev = mesh.size()
+        opts = {k: v for k, v in sh.OPTS.items() if v}
     t_step = time.perf_counter() - t0 - t_build
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,

@@ -490,6 +490,8 @@ def moe(x: Tensor, p, cfg: ArchConfig) -> Tensor:
     if (sh.OPTS["moe_ep"] and mesh is not None and _dp_size(mesh) > 1
             and b % _dp_size(mesh) == 0):
         return _moe_expert_parallel(x, p, cfg, cap, mesh)
+    if mesh is not None and sh.is_placed(x):
+        return _moe_rule_table(x, p, cfg, cap, mesh)
     top_p, top_e = _route(x, p["router"], k)
     w3 = p["w3"].to(dt) if cfg.act == "swiglu" else None
     return _experts(x, top_p, top_e, p["w1"].to(dt), p["w2"].to(dt), w3,
@@ -514,6 +516,21 @@ def _experts(x: Tensor, top_p: Tensor, top_e: Tensor, w1: Tensor,
     """Dispatch, the expert MLPs over (E, D, F) w1 / w3 and (E, F, D) w2
     in x's type (or an F slice of them: the result is then that slice's
     share of the sum over F), and the combine."""
+    xe, slot, keep = _dispatch(x, top_e, cfg, cap)
+    g = einsum("becd,edf->becf", xe, w1)
+    if cfg.act == "swiglu":
+        h = silu(g) * einsum("becd,edf->becf", xe, w3)
+    elif cfg.act == "relu2":
+        h = torch.square(torch.relu(g))
+    else:
+        h = gelu_tanh(g)
+    return _combine(einsum("becf,efd->becd", h, w2), slot, keep, top_p, cfg)
+
+
+def _dispatch(x: Tensor, top_e: Tensor, cfg: ArchConfig, cap: int):
+    """(xe, slot, keep): x's rows in their experts' capacity slots, the
+    (B, E, cap, D) token buffer (empty slots zero), and each (token,
+    choice)'s slot and whether it was kept, (B, S k)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     dt = x.dtype
@@ -527,26 +544,74 @@ def _experts(x: Tensor, top_p: Tensor, top_e: Tensor, w1: Tensor,
                        torch.zeros((), dtype=dt, device=x.device))
     xe = x.new_zeros((b, e * cap + 1, d))
     xe.scatter_(1, slot[..., None].expand(b, a, d), vals)       # (B, A) rows
-    xe = xe[:, :-1].reshape(b, e, cap, d)
+    return xe[:, :-1].reshape(b, e, cap, d), slot, keep
 
-    g = einsum("becd,edf->becf", xe, w1)
-    if cfg.act == "swiglu":
-        h = silu(g) * einsum("becd,edf->becf", xe, w3)
-    elif cfg.act == "relu2":
-        h = torch.square(torch.relu(g))
-    else:
-        h = gelu_tanh(g)
-    ye = einsum("becf,efd->becd", h, w2).reshape(b, e * cap, d)
 
+def _combine(ye: Tensor, slot: Tensor, keep: Tensor, top_p: Tensor,
+             cfg: ArchConfig) -> Tensor:
+    """Each token's k weighted expert outputs, summed in ascending
+    expert order; dropped assignments give zero."""
+    b, e, cap, d = ye.shape
+    k = cfg.moe_top_k
+    a = slot.shape[1]
+    dt = ye.dtype
+    ye = ye.reshape(b, e * cap, d)
     ya = ye.gather(1, torch.clamp(slot, max=e * cap - 1)[..., None]
                    .expand(b, a, d))
     ya = torch.where(keep[..., None], ya,
-                     torch.zeros((), dtype=dt, device=x.device))
-    ya = (ya * top_p.reshape(b, a, 1).to(dt)).reshape(b, s, k, d)
+                     torch.zeros((), dtype=dt, device=ye.device))
+    ya = (ya * top_p.reshape(b, a, 1).to(dt)).reshape(b, a // k, k, d)
     out = ya[:, :, 0]
     for j in range(1, k):
         out = out + ya[:, :, j]
     return out
+
+
+def _moe_rule_table(x, p, cfg: ArchConfig, cap: int, mesh):
+    """The MoE block on leaves placed by the rule table, without
+    ``moe_ep``: the reference's default, which GSPMD partitions. Routing,
+    dispatch and combine run on each rank's rows as local tensors (the
+    unplaced block's function, row by row); the token buffer is placed
+    like the rows, and the expert products run on DTensors whose
+    weights keep the rule table's placement, DTensor choosing the
+    collectives (it gathers what the product needs). The products take
+    the buffer expert-major and contiguous, (E, B cap, D) @ (E, D, F):
+    DTensor's einsum takes views of non-contiguous local shards, which
+    it cannot."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    b, s, d = x.shape
+    e = cfg.n_experts
+    dt = x.dtype
+    rows = sh.to_placements(mesh, sh._prune_spec(
+        mesh, tuple(x.shape), (sh._dp_for(mesh, b), None, None)))
+    # a rank's router gradient is its rows' share where the rows split
+    router = sh.to_local(p["router"], mesh, [Replicate()] * mesh.ndim,
+                         [Partial() if r == Shard(0) else Replicate()
+                          for r in rows])
+    xl = sh.to_local(x, mesh, rows)
+    top_p, top_e = _route(xl, router, cfg.moe_top_k)
+    xe, slot, keep = _dispatch(xl, top_e, cfg, cap)
+    xe = DTensor.from_local(xe, mesh, rows, run_check=False)
+    xe = xe.permute(1, 0, 2, 3).contiguous().reshape(e, b * cap, d)
+
+    def bmm(a, w):                      # ``einsum``'s rule for CPU bf16
+        w = w.to(dt)
+        if _cpu_low_precision(a):
+            return torch.bmm(a.float(), w.float()).to(dt)
+        return torch.bmm(a, w)
+
+    g = bmm(xe, p["w1"])
+    if cfg.act == "swiglu":
+        h = silu(g) * bmm(xe, p["w3"])
+    elif cfg.act == "relu2":
+        h = torch.square(torch.relu(g))
+    else:
+        h = gelu_tanh(g)
+    ye = bmm(h, p["w2"]).reshape(e, b, cap, d)
+    ye = ye.permute(1, 0, 2, 3).contiguous()
+    out = _combine(sh.to_local(ye, mesh, rows), slot, keep, top_p, cfg)
+    sh.COUNTS["moe_rule_table"] += 1
+    return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
 def _dp_size(mesh) -> int:

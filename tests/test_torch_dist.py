@@ -82,7 +82,8 @@ def build(tmp_path_factory, meshes):
     inputs, and the reference's unsharded results."""
     jobs, ref = [], {}
 
-    # moe: mixtral smoke, 4 experts, capacity factor 8, moe_ep
+    # moe: mixtral smoke, 4 experts, capacity factor 8, under moe_ep and
+    # under the rule table alone
     rcfg, cfg = both("mixtral-8x22b", n_experts=4, capacity_factor=8.0)
     rp = RL.init_moe(jax.random.PRNGKey(0), rcfg)
     rng = np.random.default_rng(1)
@@ -94,9 +95,10 @@ def build(tmp_path_factory, meshes):
     gx, gp = vjp(jnp.asarray(cot))
     ref["moe"] = (np.asarray(out), [np.asarray(gx)]
                   + [np.asarray(gp[k]) for k in names])
-    jobs.append(("moe", "moe", dict(cfg=cfg, p_np=np_tree(rp), x_np=x,
-                                    cot_np=cot, shape=meshes["moe"],
-                                    device="cpu")))
+    for label, moe_ep in (("moe", True), ("moe_rule_table", False)):
+        jobs.append((label, "moe", dict(
+            cfg=cfg, p_np=np_tree(rp), x_np=x, cot_np=cot,
+            shape=meshes["moe"], device="cpu", moe_ep=moe_ep)))
 
     # fsdp: phi4-mini smoke, B 8 x S 64, one AdamW step under fsdp_pure
     rcfg, cfg = both("phi4-mini-3.8b")
@@ -193,9 +195,14 @@ def test_every_rank_returns_the_same_results(run):
     hold_same_results(run[1])
 
 
-def hold_moe(ref, got):
+def hold_moe(ref, got, branch="moe_expert_parallel"):
+    """The placed block's output and gradients against the unplaced
+    block's and the reference's; the placed branch taken once, the
+    other never."""
     want_out, want_grads = ref["moe"]
-    assert got["counts"].get("moe_expert_parallel") == 1, got["counts"]
+    other = ({"moe_expert_parallel", "moe_rule_table"} - {branch}).pop()
+    assert got["counts"].get(branch) == 1, got["counts"]
+    assert got["counts"].get(other, 0) == 0, got["counts"]
     assert err(got["placed"], got["unplaced"]) <= PLACED_TOL
     assert err(got["unplaced"], want_out) <= F32_TOL
     for g_p, g_u, g_r in zip(got["grads_placed"], got["grads_unplaced"],
@@ -208,6 +215,14 @@ def test_moe_expert_parallel(run):
     """moe_ep on (2, 2): the output and the gradients of x and of every
     weight against the unplaced block and the reference's vmap path."""
     hold_moe(*result(run, "moe"))
+
+
+def test_moe_rule_table(run):
+    """moe_ep off on (2, 2): the MoE block on leaves placed by the rule
+    table alone (routing, dispatch and combine on each rank's rows, the
+    expert products on DTensors), held to the unplaced block and the
+    reference's VJP as the expert-parallel branch is."""
+    hold_moe(*result(run, "moe_rule_table"), branch="moe_rule_table")
 
 
 def hold_fsdp(ref, got):

@@ -39,6 +39,10 @@ def test_moe_expert_parallel(run8):
     hold_moe(*result(run8, "moe"))
 
 
+def test_moe_rule_table(run8):
+    hold_moe(*result(run8, "moe_rule_table"), branch="moe_rule_table")
+
+
 def test_fsdp_pure_train_step(run8):
     hold_fsdp(*result(run8, "fsdp"))
 

@@ -187,7 +187,9 @@ _WORLD8 = """
     cells = [("glm4-9b", "train_4k", {}), ("glm4-9b", "train_4k",
              {"bf16_params": True}), ("glm4-9b", "prefill_32k", {}),
              ("hymba-1.5b", "decode_32k", {}),
-             ("mixtral-8x22b", "decode_32k", {"moe_ep": True})]
+             ("mixtral-8x22b", "decode_32k", {"moe_ep": True}),
+             ("mixtral-8x22b", "decode_32k", {}),
+             ("mixtral-8x22b", "train_4k", {})]
     with D.fake_world(8):
         mesh = init_device_mesh("cpu", (2, 4),
                                 mesh_dim_names=("data", "model"))
@@ -213,9 +215,11 @@ def test_argument_bytes_are_the_rule_tables_local_shards_at_world_8():
     """At a fake world of 8, mesh (data 2, model 4), smoke configs: a
     cell's argument bytes, read from its arguments' local shards, equal
     the rule table's arithmetic from the global shapes, and are less
-    than the whole arguments' bytes (the rule table shards something)."""
+    than the whole arguments' bytes (the rule table shards something).
+    The MoE cells run both ways: under ``moe_ep`` and under the rule
+    table alone, decode and a training step."""
     out = run_py(_WORLD8, timeout=400)
-    assert len(out) == 5
+    assert len(out) == 7
     for cell, (got, want, whole, flops) in out.items():
         assert got == want < whole, cell
         assert flops > 0, cell
@@ -252,6 +256,29 @@ def test_one_production_mesh_cell_end_to_end(tmp_path):
     from repro_torch.bench import roofline
     (row,) = roofline.load_rows(str(tmp_path))
     assert row["arch"] == "falcon-mamba-7b" and row["t_compute_s"] > 0
+
+
+def test_moe_cell_runs_the_rule_table_unless_asked():
+    """mixtral-8x22b decode_32k at full width on the (16, 16) mesh with
+    no options: ``ok`` under the rule table (the MoE block's
+    ``moe_rule_table`` branch), and the record names no ``moe_ep``: the
+    dry run takes the strategy its options name, as the reference's
+    does."""
+    out = run_py("""
+        import json
+        from repro_torch.dist import shardings as sh
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell("mixtral-8x22b", "decode_32k", False)
+        print(json.dumps({"status": rec["status"], "opts": rec["opts"],
+                          "n_devices": rec["n_devices"],
+                          "flops": rec["flops_per_device"],
+                          "counts": dict(sh.COUNTS)}))
+    """, timeout=300)
+    assert out["status"] == "ok" and out["n_devices"] == 256
+    assert "moe_ep" not in out["opts"]
+    assert out["counts"].get("moe_rule_table", 0) > 0
+    assert out["counts"].get("moe_expert_parallel", 0) == 0
+    assert out["flops"] > 0
 
 
 def test_long_context_full_attention_is_skipped():

@@ -856,6 +856,17 @@ FLASH_BWD_SHAPES = [
     (1, 300, 130, 2, 1, 8, True, 4, torch.float32),        # fully masked rows
     (1, 300, 130, 2, 1, 8, False, 4, torch.bfloat16),
     (1, 65, 200, 3, 1, 7, True, 9, torch.bfloat16),        # odd dh
+    (4, 1024, 1024, 16, 1, 128, True, 0, torch.bfloat16),  # tensor-parallel
+    (2, 256, 256, 8, 1, 64, True, 0, torch.bfloat16),      # group of 8, dh 64
+    (2, 160, 200, 4, 2, 128, False, 0, torch.bfloat16),    # Sk 200, Sq 160
+    (1, 200, 200, 6, 2, 64, True, 0, torch.bfloat16),      # odd group of 3
+    (2, 256, 256, 8, 2, 128, True, 64, torch.bfloat16),    # windowed GQA
+    # the wgmma branch's twins of the window-only, fully masked and causal
+    # Sq != Sk cases above
+    (1, 300, 130, 2, 1, 64, True, 4, torch.bfloat16),      # fully masked rows
+    (1, 300, 130, 2, 1, 128, False, 4, torch.bfloat16),
+    (1, 70, 90, 2, 1, 128, False, 40, torch.bfloat16),     # window only
+    (1, 65, 200, 3, 1, 64, True, 0, torch.bfloat16),       # causal, Sq < Sk
 ]
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -896,11 +907,49 @@ def test_flash_backward_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
         np.float32)).to(cuda_device, dtype)
     out, lse = flash_attention_forward(q, k, v, causal=causal, window=win)
     launches = flash_attention_backward.launches
+    branches = dict(flash_attention_backward.branches)
     got = flash_attention_backward(q, k, v, out, dout, lse, causal=causal,
                                    window=win)
     torch.cuda.synchronize()
     assert flash_attention_backward.launches == launches + 1
+    branch = _backward_branch(dtype, dh)
+    assert flash_attention_backward.branches[branch] == \
+        branches.get(branch, 0) + 1
     _grads_close(got, _plain_grads(q, k, v, dout, causal, win), dtype)
+
+
+def _backward_branch(dtype, dh) -> str:
+    """The backward kernel's branch for these (aligned) operands."""
+    return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "mma"
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (4, 1024, 1024, 32, 2, 128, True, 0), (2, 160, 200, 4, 2, 64, False, 0),
+    (1, 200, 200, 6, 2, 64, True, 0), (1, 300, 130, 2, 1, 64, True, 4)])
+def test_flash_backward_dk_dv_are_deterministic(cuda_device, b, sq, sk, h,
+                                                kv, dh, causal, win):
+    """Two launches of the wgmma backward on the same inputs give dk and
+    dv bit for bit (the group's float32 partials are summed in a fixed
+    order); dq, summed by atomics, within the tolerance of each other."""
+    rng = np.random.default_rng(sq + dh + h)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for s in (
+                   (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
+    dout = torch.from_numpy(rng.normal(size=(b, sq, h, dh)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    out, lse = flash_attention_forward(q, k, v, causal=causal, window=win)
+    wgmma = flash_attention_backward.branches["wgmma"]
+    first = flash_attention_backward(q, k, v, out, dout, lse, causal=causal,
+                                     window=win)
+    second = flash_attention_backward(q, k, v, out, dout, lse, causal=causal,
+                                      window=win)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.branches["wgmma"] == wgmma + 2
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    scale = max(1.0, first[0].float().abs().max().item())
+    assert (first[0].float() - second[0].float()).abs().max().item() <= \
+        FLASH_TOL[torch.bfloat16] * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
