@@ -6,11 +6,20 @@
 // What it computes. After fanin-constrained pruning each of N neurons
 // reads exactly K of the n_in inputs:
 //   y[b, j] = sum_{k=0..K-1} x[b, idx[j, k]] * w[j, k] + bias[j]
-// for x, w and bias all float32, all bfloat16 or all float16, in the
-// reference kernel's rounding: each product rounded to the input type,
-// the sum in float32 from k = 0 up (no fused multiply-add), then the
-// bias, then one rounding to the input type; the plain version
-// computes the same, bit for bit. An index in [-n_in, 0) reads column
+// for x, w and bias each float32, bfloat16 or float16, in the reference
+// kernel's rounding: each product rounded to the promoted type of x and
+// w (JAX's and torch's promotion agree here: x's type where w has it,
+// else float32), the sum in float32 from k = 0 up (no fused
+// multiply-add), then the bias, then one rounding to x's type; the
+// plain version computes the same, bit for bit. Mixed types reach two
+// more instances a type of x (bf16, f16): w in float32 (W = float), its
+// products exact in float32. The wrapper casts a w of another type than
+// x's to float32 and a bias of another type to float32 before the
+// launch: bf16 and f16 values are float32 values, so the casts round
+// nothing, the float32 product of the cast values is the reference's
+// promoted product (float32 whenever the two types differ), and the
+// bias is added to the float32 sum as the reference adds it. An index
+// in [-n_in, 0) reads column
 // idx + n_in; any other outside [0, n_in) gathers a NaN, as the
 // reference's gather does: a compare on each index, no host check.
 //
@@ -111,6 +120,19 @@ template <> struct Num<__half> {
   }
   static __device__ __forceinline__ float bits(unsigned v) {
     return __half2float(__ushort_as_half(static_cast<unsigned short>(v)));
+  }
+};
+
+// The product of an x value (type T) and a w value (type W) in their
+// promoted type: T's own where W is T, float32 where w is float32.
+template <typename T, typename W> struct Prod {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return Num<T>::mul(a, b);
+  }
+};
+template <typename T> struct Prod<T, float> {
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
   }
 };
 
@@ -228,9 +250,9 @@ __device__ __forceinline__ void load8(float* out, const T* p) {
 // float32 w, of 8 for 2-byte w), so a full chunk comes in 16-byte
 // loads: a warp's lanes read 32 rows of 32 bytes, and a 4-byte load
 // costs an L1 wavefront for each line the warp touches.
-template <typename T>
+template <typename W>
 __device__ __forceinline__ void load_chunk(Chunk& ch, const int* ip,
-                                           const T* wp, int k0, int K,
+                                           const W* wp, int k0, int K,
                                            int n_in, bool vec) {
   int i8[kChunk];
   if (vec && k0 + kChunk <= K) {
@@ -244,7 +266,7 @@ __device__ __forceinline__ void load_chunk(Chunk& ch, const int* ip,
     for (int c = 0; c < kChunk; ++c) {
       const bool in_k = k0 + c < K;
       i8[c] = in_k ? __ldg(ip + k0 + c) : 0;
-      ch.w[c] = in_k ? Num<T>::in(__ldg(wp + k0 + c)) : 0.0f;
+      ch.w[c] = in_k ? Num<W>::in(__ldg(wp + k0 + c)) : 0.0f;
     }
   }
 #pragma unroll
@@ -257,14 +279,14 @@ __device__ __forceinline__ void load_chunk(Chunk& ch, const int* ip,
 // One block: rows b0 .. b0 + R - 1 of x (staged in shared memory, or
 // in device memory) and the neurons of span blockIdx.y, thread t the
 // span's neurons t, t + kThreads, ..., each sum in k order, then the
-// bias; a thread's next eight terms are in flight while it gathers for
-// the current ones.
-template <typename T, int R, bool kStaged>
+// bias (of type T, or float32 where bias_f32); a thread's next eight
+// terms are in flight while it gathers for the current ones.
+template <typename T, typename W, int R, bool kStaged>
 __global__ void __launch_bounds__(kThreads<kStaged>)
 fanin_matmul_kernel(const T* __restrict__ x, const int* __restrict__ idx,
-                    const T* __restrict__ w, const T* __restrict__ bias,
-                    T* __restrict__ out, int B, int n_in, int N, int K,
-                    int span) {
+                    const W* __restrict__ w, const void* __restrict__ bias,
+                    int bias_f32, T* __restrict__ out, int B, int n_in,
+                    int N, int K, int span) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b0 = blockIdx.x * R;
   const int nr = min(R, B - b0);
@@ -281,7 +303,7 @@ fanin_matmul_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     xb = stage_rows(smem + kBarBytes, xb, bytes, p, bar);
   }
   const bool vec =
-      K % (16 / sizeof(T)) == 0 &&
+      K % (16 / sizeof(W)) == 0 &&
       ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(w)) &
        15) == 0;
   const float qnan = __int_as_float(0x7fffffff);
@@ -311,11 +333,13 @@ fanin_matmul_kernel(const T* __restrict__ x, const int* __restrict__ idx,
         if (k0 + c >= K) break;
         const float v =
             cur.col[c] >= 0 ? Num<T>::in(xb[r * n_in + cur.col[c]]) : qnan;
-        acc[r] = __fadd_rn(acc[r], Num<T>::mul(v, cur.w[c]));
+        acc[r] = __fadd_rn(acc[r], Prod<T, W>::mul(v, cur.w[c]));
       }
     }
     if (kn == 0) {                           // neuron j is summed
-      const float bj = Num<T>::in(bias[j]);
+      const float bj =
+          bias_f32 ? static_cast<const float*>(bias)[j]
+                   : Num<T>::in(static_cast<const T*>(bias)[j]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < nr)
@@ -327,70 +351,89 @@ fanin_matmul_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-template <typename T, int R, bool kStaged>
+template <typename T, typename W, int R, bool kStaged>
 int launch(const void* x, const void* idx, const void* w, const void* bias,
-           void* out, int B, int n_in, int N, int K, int span, size_t smem,
-           cudaStream_t stream) {
+           int bias_f32, void* out, int B, int n_in, int N, int K, int span,
+           size_t smem, cudaStream_t stream) {
   static size_t opted = 0;
   const cudaError_t err =
-      repro::allow_smem(fanin_matmul_kernel<T, R, kStaged>, smem, opted);
+      repro::allow_smem(fanin_matmul_kernel<T, W, R, kStaged>, smem, opted);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + R - 1) / R, (N + span - 1) / span);
-  fanin_matmul_kernel<T, R, kStaged>
+  fanin_matmul_kernel<T, W, R, kStaged>
       <<<grid, kThreads<kStaged>, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int*>(idx),
-      static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<T*>(out), B, n_in, N, K, span);
+      static_cast<const W*>(w), bias, bias_f32, static_cast<T*>(out), B,
+      n_in, N, K, span);
   return cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, typename W, int R>
 int launch_rows(bool staged, const void* x, const void* idx, const void* w,
-                const void* bias, void* out, int B, int n_in, int N, int K,
-                int span, size_t smem, cudaStream_t stream) {
-  return staged ? launch<T, R, true>(x, idx, w, bias, out, B, n_in, N, K,
-                                     span, smem, stream)
-                : launch<T, R, false>(x, idx, w, bias, out, B, n_in, N, K,
-                                      span, 0, stream);
+                const void* bias, int bias_f32, void* out, int B, int n_in,
+                int N, int K, int span, size_t smem, cudaStream_t stream) {
+  return staged ? launch<T, W, R, true>(x, idx, w, bias, bias_f32, out, B,
+                                        n_in, N, K, span, smem, stream)
+                : launch<T, W, R, false>(x, idx, w, bias, bias_f32, out, B,
+                                         n_in, N, K, span, 0, stream);
 }
 
-template <typename T>
+template <typename T, typename W>
 int launch_type(int rows, bool staged, const void* x, const void* idx,
-                const void* w, const void* bias, void* out, int B, int n_in,
-                int N, int K, int span, size_t smem, cudaStream_t stream) {
+                const void* w, const void* bias, int bias_f32, void* out,
+                int B, int n_in, int N, int K, int span, size_t smem,
+                cudaStream_t stream) {
   switch (rows) {
-    case 1: return launch_rows<T, 1>(staged, x, idx, w, bias, out, B, n_in,
-                                     N, K, span, smem, stream);
-    case 2: return launch_rows<T, 2>(staged, x, idx, w, bias, out, B, n_in,
-                                     N, K, span, smem, stream);
+    case 1: return launch_rows<T, W, 1>(staged, x, idx, w, bias, bias_f32,
+                                        out, B, n_in, N, K, span, smem,
+                                        stream);
+    case 2: return launch_rows<T, W, 2>(staged, x, idx, w, bias, bias_f32,
+                                        out, B, n_in, N, K, span, smem,
+                                        stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// x's type T with w of T's type, or (w_f32) in float32
+template <typename T>
+int launch_w(int w_f32, int rows, bool staged, const void* x,
+             const void* idx, const void* w, const void* bias, int bias_f32,
+             void* out, int B, int n_in, int N, int K, int span, size_t smem,
+             cudaStream_t stream) {
+  return w_f32 ? launch_type<T, float>(rows, staged, x, idx, w, bias,
+                                       bias_f32, out, B, n_in, N, K, span,
+                                       smem, stream)
+               : launch_type<T, T>(rows, staged, x, idx, w, bias, bias_f32,
+                                   out, B, n_in, N, K, span, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, n_in); idx (N, K) int32; w (N, K); bias (N,); out (B, N); x, w,
-// bias and out of one type: dtype 0 float32, 1 bfloat16, 2 float16. All
+// x (B, n_in); idx (N, K) int32; w (N, K); bias (N,); out (B, N); x and
+// out of one type: dtype 0 float32, 1 bfloat16, 2 float16; w of x's type
+// or (w_f32) float32, bias of x's type or (bias_f32) float32. All
 // contiguous, on the device of `stream`. rows (1 or 2) batch rows and
 // span neurons a block; staged: the rows in `smem` bytes of shared
 // memory (16 for the mbarrier, then the rows' bytes rounded up to 16,
 // + 16), else read from device memory. Returns a cudaError_t.
 int fanin_matmul_launch(const void* x, const void* idx, const void* w,
                         const void* bias, void* out, int B, int n_in, int N,
-                        int K, int dtype, int rows, int staged, int span,
-                        int smem, void* stream) {
+                        int K, int dtype, int w_f32, int bias_f32, int rows,
+                        int staged, int span, int smem, void* stream) {
   if (span <= 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_type<float>(rows, staged, x, idx, w, bias, out, B,
-                                      n_in, N, K, span, smem, s);
-    case 1: return launch_type<__nv_bfloat16>(rows, staged, x, idx, w, bias,
-                                              out, B, n_in, N, K, span, smem,
-                                              s);
-    case 2: return launch_type<__half>(rows, staged, x, idx, w, bias, out, B,
-                                       n_in, N, K, span, smem, s);
+    case 0: return launch_type<float, float>(rows, staged, x, idx, w, bias,
+                                             0, out, B, n_in, N, K, span,
+                                             smem, s);
+    case 1: return launch_w<__nv_bfloat16>(w_f32, rows, staged, x, idx, w,
+                                           bias, bias_f32, out, B, n_in, N,
+                                           K, span, smem, s);
+    case 2: return launch_w<__half>(w_f32, rows, staged, x, idx, w, bias,
+                                    bias_f32, out, B, n_in, N, K, span, smem,
+                                    s);
     default: return cudaErrorInvalidValue;
   }
 }

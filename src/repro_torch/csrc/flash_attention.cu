@@ -56,8 +56,22 @@
 //    is computed, and only the slice's own warps wait for them (a named
 //    barrier, no block barrier inside the loop). Rows are padded so
 //    every fragment read is free of bank conflicts; dh is zero-padded to
-//    the template width (16, 32, 64, 128) in shared memory only, and
-//    keys past the block's range are zero-filled.
+//    the template width (16, 32, 64, 128, 192, 256) in shared memory
+//    only, and keys past the block's range are zero-filled.
+//  * The wide templates (dh 129..192 and 193..256; nemotron-4-340b's
+//    heads are 192 wide) keep the block's shape and change its tile.
+//    Four slices of three stages of 32 keys would take 307,200 B of
+//    rings at 192 in bf16, over the 232,448 B a block may have, and the
+//    Q fragments and a 16 x DHP accumulator in registers would take 64 +
+//    128 of a thread's 255 at 256. So a step is 16 keys in bf16 and 8 in
+//    float32, Q's 16 rows of the block's heads sit in shared memory
+//    (copied once, read as the A operand each step, as the backward's
+//    products read theirs) instead of in registers, and float32 at 256
+//    keeps two stages: rings + Q come to 166,400 B (bf16, 192), 219,648
+//    (bf16, 256), 175,616 (float32, 192) and 166,400 (float32, 256),
+//    and the merge area (at most 133,120 B) fits in them. Smaller steps
+//    mean more barriers and copies per key; these templates are made
+//    right first, not fast.
 //  * Heaviest first: with a causal mask the grid is ordered from the
 //    last row tile (the most keys) to the first.
 //  * wgmma is not used: it needs 64-row tiles per warpgroup, which
@@ -77,29 +91,54 @@
 
 #include "wgmma.cuh"
 
+// The templates of 192 and 256 (dh 129..256), forward and mma.sync
+// backward, launched for the entry points below by these two functions.
+// flash_attention_wide.cu defines them: it includes this file with
+// REPRO_FLASH_WIDE_UNIT defined, so those templates are compiled in a
+// translation unit of their own, beside this one (the build runs one
+// nvcc a source, all at once).
+namespace repro_flash_wide {
+cudaError_t forward(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int B, int H, int KV, int Sq, int Sk, int dh,
+                    float scale, int causal, int window, int cw_shift,
+                    int bf16, cudaStream_t s);
+cudaError_t backward(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, const float* lse,
+                     float* D, void* dq, void* dk, void* dv, int B, int H,
+                     int KV, int Sq, int Sk, int dh, float scale, int causal,
+                     int window, int cw_shift, int bf16, cudaStream_t s);
+}  // namespace repro_flash_wide
+
 namespace {
 
 constexpr int kSlices = 4;                  // key slices per block
 constexpr int kMaxHeads = 2;                // query heads per block
 constexpr int kMaxThreads = 32 * kSlices * kMaxHeads;
 constexpr int kRows = 16;                   // query rows per block
-constexpr int kStages = 3;                  // K / V steps in a slice's ring
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // A slice's K / V step in shared memory: kKeys keys (32; 16 in float32
-// at dh above 64, where three stages of 32 would not fit), each row DHP
-// elements plus a pad that keeps rows 16-byte aligned and the fragment
-// reads free of bank conflicts.
+// at dh above 64, where three stages of 32 would not fit; 16 in bf16
+// and 8 in float32 in the wide templates), each row DHP elements plus a
+// pad that keeps rows 16-byte aligned and the fragment reads free of
+// bank conflicts, in a ring of kStages steps (3; 2 in float32 at 256).
+// The wide templates (DHP above 128) also stage Q: kQElems after the
+// slices' rings.
 template <typename T, int DHP>
 struct Tile {
-  static constexpr int kKeys = sizeof(T) == 2 || DHP <= 64 ? 32 : 16;
+  static constexpr bool kWide = DHP > 128;
+  static constexpr int kKeys = kWide ? (sizeof(T) == 2 ? 16 : 8)
+                                     : (sizeof(T) == 2 || DHP <= 64 ? 32 : 16);
+  static constexpr int kStages = kWide && sizeof(T) == 4 && DHP > 192 ? 2 : 3;
   static constexpr int kPad = 16 / sizeof(T);
   static constexpr int kStride = DHP + kPad;            // elements per row
   static constexpr int kStep = kKeys * kStride;         // one K or V step
   static constexpr int kSliceElems = kStages * 2 * kStep;   // a ring
-  static constexpr int kBytes = kSlices * kSliceElems * sizeof(T);
+  static constexpr int kQElems = kWide ? kMaxHeads * kRows * kStride : 0;
+  static constexpr int kBytes =
+      (kSlices * kSliceElems + kQElems) * static_cast<int>(sizeof(T));
   // the merge area (m, l, acc and weights of every warp) reuses them
   static constexpr int kWarps = kSlices * kMaxHeads;
   static constexpr int kMergeBytes =
@@ -144,12 +183,17 @@ __device__ __forceinline__ void load_rows(T* dst, const T* base, int r0,
                                           int cw_shift, int id, int n) {
   using TL = Tile<T, DHP>;
   constexpr int kRowBytes = DHP * sizeof(T);
+  // 192-wide rows are not a power of two bytes: their segments divide
+  constexpr bool kPow2 = (kRowBytes & (kRowBytes - 1)) == 0;
   const int cw = 1 << cw_shift;
   const int seg_shift = __ffs(kRowBytes) - 1 - cw_shift;  // log2 segs
+  const int segs = kRowBytes >> cw_shift;
   const int dh_bytes = dh * static_cast<int>(sizeof(T));
-  for (int e = id; e < (ROWS << seg_shift); e += n) {
-    const int j = e >> seg_shift;
-    const int off = (e - (j << seg_shift)) << cw_shift;
+  const int total = kPow2 ? (ROWS << seg_shift) : ROWS * segs;
+  for (int e = id; e < total; e += n) {
+    const int j = kPow2 ? e >> seg_shift : e / segs;
+    const int off = kPow2 ? (e - (j << seg_shift)) << cw_shift
+                          : (e - j * segs) << cw_shift;
     const bool valid = r0 + j < hi && off < dh_bytes;
     char* d = reinterpret_cast<char*>(dst + j * TL::kStride) + off;
     const char* s =
@@ -490,6 +534,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = rt * kRows;
   const int g = lane >> 2, t = lane & 3;
   const int n_warps = kSlices * HB;
+  constexpr int kStages = TL::kStages;
   // this slice's ring of kStages (K, V) steps, and its threads
   T* s_kv = reinterpret_cast<T*>(smem) + slice * TL::kSliceElems;
   const int sid = threadIdx.x - slice * 32 * HB, sn = 32 * HB;
@@ -514,9 +559,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       cw_shift, sid, sn);
   };
   // Q's fragments and a touch of this block's output rows go out first,
-  // so their address translation and latency overlap the first copies
+  // so their address translation and latency overlap the first copies;
+  // the wide templates copy the 16 rows of the block's HB heads into
+  // shared memory instead, a group of their own that every slice reads
   typename M::QFrag qf;
-  M::load_q(qf, q + (size_t(b) * Sq * H + h) * dh, q0, Sq, H * dh, dh, g, t);
+  T* s_q = reinterpret_cast<T*>(smem) + kSlices * TL::kSliceElems;
+  if constexpr (TL::kWide) {
+    for (int hb = 0; hb < HB; ++hb)
+      load_rows<T, DHP, kRows>(
+          s_q + hb * kRows * TL::kStride,
+          q + (size_t(b) * Sq * H + h - warp % HB + hb) * dh, q0, Sq, H * dh,
+          dh, cw_shift, threadIdx.x, blockDim.x);
+    cp_async_commit();
+  } else {
+    M::load_q(qf, q + (size_t(b) * Sq * H + h) * dh, q0, Sq, H * dh, dh, g,
+              t);
+  }
   T* orow0 = out + (size_t(b) * Sq + min(q0 + lane % kRows, Sq - 1)) * H * dh +
              size_t(h) * dh;
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(orow0));
@@ -525,6 +583,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (j < n_mine) fetch(j);
     cp_async_commit();
   }
+  if constexpr (TL::kWide) {       // Q landed, every thread's share of it
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+  }
+  const T* a_q = s_q + (warp % HB) * kRows * TL::kStride;
   const int i0 = q0 + g, i1 = q0 + g + 8;        // this thread's rows
   const float c = scale * kLog2e;                // scores in log2 units
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
@@ -543,7 +606,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kt = s_kv + (j % kStages) * 2 * TL::kStep;
     const int kw = key0(j);
     float p[kNB][4];
-    M::scores(p, qf, kt, g, t);
+    if constexpr (TL::kWide)
+      M::scores_s(p, a_q, kt, g, t);
+    else
+      M::scores(p, qf, kt, g, t);
 
     // a step whose every key is unmasked for all 16 rows skips the mask
     const bool full = kw + TL::kKeys <= Sk &&
@@ -771,8 +837,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //    reads rows past the end as zero and the mask drops them), the scale
 //    on dK and dQ.
 //
-// The mma.sync kernels (float32 as three TF32 passes, dh up to 128 in
-// templates of 16 to 128, any alignment), three launches with float32
+// The mma.sync kernels (float32 as three TF32 passes, dh up to 256 in
+// templates of 16 to 256, any alignment), three launches with float32
 // sums and no atomics (every output element is written by one thread,
 // in a fixed order):
 //  1. D = sum_d dout * out per (b, query row, head), a warp a row;
@@ -792,6 +858,18 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //     double-buffered): S = Q K^T, dP = dout V^T, dS as above, dQ += dS K.
 //     (S and dP twice a kept pair: these kernels serve small and float32
 //     shapes, off the bf16 training path.)
+// The wide templates (dh 129..256, the steps of the forward's Tile: 16
+// rows or keys in bf16, 8 in float32) split step 2 over two blocks a key
+// block, one summing dV and one dK: two [DHP / 8][4] float32
+// accumulators are 192 registers a thread at dh 192 and 256 at 256, past
+// the 255 a thread may have before any fragment, and one is 96 or 128.
+// The dV block computes S^T and dV += P^T dout (4 dh a kept pair), the
+// dK block S^T, dP^T and dK += dS^T Q (6 dh): S^T twice, 2 dh more than
+// the one block's 8, so with step 3 the mma.sync branch does 16 dh a
+// kept pair against the 10 dh of the bound; both blocks copy the same
+// Q and dout steps (adjacent in the grid, so the second copy comes from
+// L2). Splitting dh between two warps instead would recompute S^T and
+// dP^T both (4 dh more).
 // dK and dQ are scaled by 1/sqrt(dh) when they are stored. A query row
 // whose every key is masked (a window with i >= Sk + window - 1) took
 // the mean of v forward: it gives dQ = 0, nothing to dK, and
@@ -836,15 +914,20 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ out,
   }
 }
 
+// The bodies of the dK / dV and dQ kernels, below as __global__ functions
+// of two launch bounds: the 16-128 templates' (ptxas may squeeze
+// registers to fit a third block of 128 threads), and the wide
+// templates' with a minimum of one block, so ptxas may use up to 255
+// registers a thread. Squeezed to 168 for a third block, the bf16 dQ
+// kernel at 192 spilled; shared memory (76,800 B a block) leaves room
+// for two anyway.
 template <typename T, int DHP>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ D, T* __restrict__ dk,
-                      T* __restrict__ dv, int B, int H, int KV, int Sq,
-                      int Sk, int dh, float scale, int causal, int window,
-                      int cw_shift) {
+__device__ __forceinline__ void bwd_dkdv(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ D,
+    T* __restrict__ dk, T* __restrict__ dv, int B, int H, int KV, int Sq,
+    int Sk, int dh, float scale, int causal, int window, int cw_shift) {
   using M = Mma<T, DHP>;
   using TL = Tile<T, DHP>;
   constexpr int kNB = M::kNB, kS = TL::kStride, kStepRows = TL::kKeys;
@@ -853,8 +936,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* s_v = s_k + kBwdRows * kS;
   T* s_ring = s_v + kBwdRows * kS;               // 2 x (Q step, dout step)
 
+  // the wide templates split dK and dV over two blocks a key block
+  // (blockIdx.x = 2 x item + part; part 0 sums dV, part 1 dK), as two
+  // [DHP / 8][4] accumulators a thread would not fit in registers
+  constexpr bool kSplit = DHP > 128;
+  const int part = kSplit ? static_cast<int>(blockIdx.x & 1) : 0;
+  const int item = kSplit ? static_cast<int>(blockIdx.x >> 1)
+                          : static_cast<int>(blockIdx.x);
   // key blocks outermost: under a causal mask the first see the most rows
-  const int kb = blockIdx.x / (B * KV), bkv = blockIdx.x % (B * KV);
+  const int kb = item / (B * KV), bkv = item % (B * KV);
   const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -886,11 +976,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (n > 0) fetch(0);
   cp_async_commit();
 
-  float acc_k[DHP / 8][4], acc_v[DHP / 8][4];
+  // acc_v (acc_k unused) in a split block: its part's sum
+  float acc_k[kSplit ? 1 : DHP / 8][4], acc_v[DHP / 8][4];
 #pragma unroll
   for (int dn = 0; dn < DHP / 8; ++dn)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc_k[dn][r] = acc_v[dn][r] = 0.0f;
+    for (int r = 0; r < 4; ++r) acc_v[dn][r] = 0.0f;
+#pragma unroll
+  for (int dn = 0; dn < (kSplit ? 1 : DHP / 8); ++dn)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_k[dn][r] = 0.0f;
   const float c = scale * kLog2e;
   const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;   // this thread's keys
   const T* a_k = s_k + warp * 16 * kS;
@@ -908,8 +1003,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* lse_h = lse + (size_t(b) * H + hh) * Sq;
     const float* d_h = D + (size_t(b) * H + hh) * Sq;
     float p[kNB][4], dp[kNB][4];
+    // a split block: S^T in both parts, dP^T, dS^T and dK += dS^T Q in
+    // the dK blocks (part 1), dV += P^T dout in the dV blocks
     M::scores_s(p, a_k, qt, g, t);               // S^T: keys x rows
-    M::scores_s(dp, a_v, dot, g, t);             // dP^T
+    if (!kSplit || part) M::scores_s(dp, a_v, dot, g, t);   // dP^T
 #pragma unroll
     for (int nb = 0; nb < kNB; ++nb)
 #pragma unroll
@@ -921,13 +1018,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float pr = 0.0f, ds = 0.0f;
         if (keep) {
           pr = exp2f(p[nb][r] * c - lse_h[i] * kLog2e);
-          ds = pr * (dp[nb][r] - d_h[i]);
+          if (!kSplit || part) ds = pr * (dp[nb][r] - d_h[i]);
         }
         p[nb][r] = pr;
         dp[nb][r] = ds;
       }
-    M::pv(acc_v, p, dot, g, t);                  // dV += P^T dout
-    M::pv(acc_k, dp, qt, g, t);                  // dK += dS^T Q
+    if constexpr (kSplit) {
+      if (part)
+        M::pv(acc_v, dp, qt, g, t);              // dK += dS^T Q
+      else
+        M::pv(acc_v, p, dot, g, t);              // dV += P^T dout
+    } else {
+      M::pv(acc_v, p, dot, g, t);                // dV += P^T dout
+      M::pv(acc_k, dp, qt, g, t);                // dK += dS^T Q
+    }
     __syncthreads();                             // the step may be refilled
   }
   cp_async_wait<0>();
@@ -942,6 +1046,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = r < 2 ? j0 : j1;
       const int d = dn * 8 + 2 * t + (r & 1);
       if (key >= Sk || d >= dh) continue;
+      const size_t o = (size_t(b) * Sk + key) * kv_elems + size_t(kvh) * dh + d;
+      if (kSplit && part) {                      // a dK block
+        store(dk + o, acc_v[dn][r] * scale);
+        continue;
+      }
       float vv = acc_v[dn][r];
       if (i_dead < Sq) {
         float sum = 0.0f;
@@ -951,20 +1060,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  size_t(hh) * dh + d]);
         vv += p0 * sum;
       }
-      const size_t o = (size_t(b) * Sk + key) * kv_elems + size_t(kvh) * dh + d;
-      store(dk + o, acc_k[dn][r] * scale);
+      if (!kSplit) store(dk + o, acc_k[kSplit ? 0 : dn][r] * scale);
       store(dv + o, vv);
     }
 }
 
 template <typename T, int DHP>
-__global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ D, T* __restrict__ dq, int B,
-                    int H, int KV, int Sq, int Sk, int dh, float scale,
-                    int causal, int window, int cw_shift) {
+__device__ __forceinline__ void bwd_dq(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ D,
+    T* __restrict__ dq, int B, int H, int KV, int Sq, int Sk, int dh,
+    float scale, int causal, int window, int cw_shift) {
   using M = Mma<T, DHP>;
   using TL = Tile<T, DHP>;
   constexpr int kNB = M::kNB, kS = TL::kStride, kStepKeys = TL::kKeys;
@@ -1064,6 +1171,32 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               acc[dn][r] * scale);
     }
 }
+
+#define REPRO_BWD_KERNELS(NAME, BOUNDS)                                      \
+  template <typename T, int DHP>                                             \
+  __global__ void BOUNDS NAME##_dkdv_kernel(                                 \
+      const T* __restrict__ q, const T* __restrict__ k,                      \
+      const T* __restrict__ v, const T* __restrict__ dout,                   \
+      const float* __restrict__ lse, const float* __restrict__ D,            \
+      T* __restrict__ dk, T* __restrict__ dv, int B, int H, int KV, int Sq,  \
+      int Sk, int dh, float scale, int causal, int window, int cw_shift) {   \
+    bwd_dkdv<T, DHP>(q, k, v, dout, lse, D, dk, dv, B, H, KV, Sq, Sk, dh,    \
+                     scale, causal, window, cw_shift);                       \
+  }                                                                          \
+  template <typename T, int DHP>                                             \
+  __global__ void BOUNDS NAME##_dq_kernel(                                   \
+      const T* __restrict__ q, const T* __restrict__ k,                      \
+      const T* __restrict__ v, const T* __restrict__ dout,                   \
+      const float* __restrict__ lse, const float* __restrict__ D,            \
+      T* __restrict__ dq, int B, int H, int KV, int Sq, int Sk, int dh,      \
+      float scale, int causal, int window, int cw_shift) {                   \
+    bwd_dq<T, DHP>(q, k, v, dout, lse, D, dq, B, H, KV, Sq, Sk, dh, scale,   \
+                   causal, window, cw_shift);                                \
+  }
+
+REPRO_BWD_KERNELS(flash_bwd, __launch_bounds__(kBwdThreads))
+REPRO_BWD_KERNELS(flash_bwd_wide, __launch_bounds__(kBwdThreads, 1))
+#undef REPRO_BWD_KERNELS
 
 // ---- the backward's wgmma branch (bf16, dh 64 or 128) -----------------
 
@@ -1608,15 +1741,23 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        int causal, int window, int cw_shift,
                        cudaStream_t stream) {
   constexpr int smem = Bwd<T, DHP>::kSmem;
+  constexpr bool kWide = DHP > 128;
+  // the wide templates' kernels (one block at least, see bwd_dkdv)
+  auto* dkdv_kernel = [] {
+    if constexpr (kWide) return flash_bwd_wide_dkdv_kernel<T, DHP>;
+    else return flash_bwd_dkdv_kernel<T, DHP>;
+  }();
+  auto* dq_kernel = [] {
+    if constexpr (kWide) return flash_bwd_wide_dq_kernel<T, DHP>;
+    else return flash_bwd_dq_kernel<T, DHP>;
+  }();
   static bool ready = false;            // the opt-in above 48 KB, once
   if (!ready && smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkdv_kernel<T, DHP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DHP>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+      err = cudaFuncSetAttribute(
+          dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   ready = true;
@@ -1630,18 +1771,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                                                               H, Sq, dh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long kv_blocks =
-      (long long)((Sk + kBwdRows - 1) / kBwdRows) * B * KV;
-  flash_bwd_dkdv_kernel<T, DHP><<<static_cast<unsigned>(kv_blocks),
-                                  kBwdThreads, smem, stream>>>(
+  const long long kv_blocks = (long long)((Sk + kBwdRows - 1) / kBwdRows) *
+                              B * KV * (kWide ? 2 : 1);
+  dkdv_kernel<<<static_cast<unsigned>(kv_blocks), kBwdThreads, smem,
+                stream>>>(
       qq, kk, vv, gg, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), B, H,
       KV, Sq, Sk, dh, scale, causal, window, cw_shift);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long q_blocks =
       (long long)((Sq + kBwdRows - 1) / kBwdRows) * B * H;
-  flash_bwd_dq_kernel<T, DHP><<<static_cast<unsigned>(q_blocks), kBwdThreads,
-                                smem, stream>>>(
+  dq_kernel<<<static_cast<unsigned>(q_blocks), kBwdThreads, smem,
+              stream>>>(
       qq, kk, vv, gg, lse, D, static_cast<T*>(dq), B, H, KV, Sq, Sk, dh,
       scale, causal, window, cw_shift);
   return cudaGetLastError();
@@ -1673,11 +1814,13 @@ int copy_shift(std::initializer_list<const void*> ptrs, int dh, int elem) {
 
 }  // namespace
 
+#ifndef REPRO_FLASH_WIDE_UNIT
+
 extern "C" {
 
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh), out (B, Sq, H, dh); all
 // float32 (bf16 = 0) or all bfloat16 (bf16 = 1), contiguous, on the
-// device of `stream`; 1 <= dh <= 128, H % KV == 0, Sk >= 1. lse: null,
+// device of `stream`; 1 <= dh <= 256, H % KV == 0, Sk >= 1. lse: null,
 // or float32 (B, H, Sq) to receive each row's log-sum-exp of the scaled
 // scores (+inf for a row whose every key is masked). Returns a
 // cudaError_t.
@@ -1687,8 +1830,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int window, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (KV <= 0 || H % KV || Sk <= 0) return cudaErrorInvalidValue;
-  const int cw_shift = copy_shift({k, v}, dh, bf16 ? 2 : 4);
+  // the wide templates copy Q's rows too
+  const int cw_shift = dh > 128 ? copy_shift({q, k, v}, dh, bf16 ? 2 : 4)
+                                : copy_shift({k, v}, dh, bf16 ? 2 : 4);
   float* l = static_cast<float*>(lse);
+  if (dh > 128 && dh <= 256)
+    return repro_flash_wide::forward(q, k, v, out, l, B, H, KV, Sq, Sk, dh,
+                                     scale, causal, window, cw_shift, bf16,
+                                     s);
   if (bf16)
     return dispatch<__nv_bfloat16>(q, k, v, out, l, B, H, KV, Sq, Sk, dh,
                                    scale, causal, window, cw_shift, s);
@@ -1735,6 +1884,10 @@ int flash_attention_backward_launch(const void* q, const void* k,
                                KV, Sq, Sk, scale, causal, window, s);
   }
   const int cw_shift = copy_shift({q, k, v, dout}, dh, bf16 ? 2 : 4);
+  if (dh > 128 && dh <= 256)
+    return repro_flash_wide::backward(q, k, v, out, dout, l, w, dq, dk, dv, B,
+                                      H, KV, Sq, Sk, dh, scale, causal,
+                                      window, cw_shift, bf16, s);
   if (bf16)
     return dispatch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, w, dq, dk, dv,
                                        B, H, KV, Sq, Sk, dh, scale, causal,
@@ -1744,3 +1897,35 @@ int flash_attention_backward_launch(const void* q, const void* k,
 }
 
 }  // extern "C"
+
+#else  // the wide templates' translation unit
+
+cudaError_t repro_flash_wide::forward(const void* q, const void* k,
+                                      const void* v, void* out, float* lse,
+                                      int B, int H, int KV, int Sq, int Sk,
+                                      int dh, float scale, int causal,
+                                      int window, int cw_shift, int bf16,
+                                      cudaStream_t s) {
+  if (bf16)
+    return dh <= 192 ? launch<__nv_bfloat16, 192>(q, k, v, out, lse, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s)
+                     : launch<__nv_bfloat16, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
+  return dh <= 192 ? launch<float, 192>(q, k, v, out, lse, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s)
+                   : launch<float, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
+}
+
+cudaError_t repro_flash_wide::backward(const void* q, const void* k,
+                                       const void* v, const void* out,
+                                       const void* dout, const float* lse,
+                                       float* D, void* dq, void* dk, void* dv,
+                                       int B, int H, int KV, int Sq, int Sk,
+                                       int dh, float scale, int causal,
+                                       int window, int cw_shift, int bf16,
+                                       cudaStream_t s) {
+  if (bf16)
+    return dh <= 192 ? launch_bwd<__nv_bfloat16, 192>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s)
+                     : launch_bwd<__nv_bfloat16, 256>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
+  return dh <= 192 ? launch_bwd<float, 192>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s)
+                   : launch_bwd<float, 256>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
+}
+
+#endif  // REPRO_FLASH_WIDE_UNIT

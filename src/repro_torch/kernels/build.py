@@ -39,7 +39,7 @@ SIGNATURES = {
     "lut_layer_launch": [_P] * 4 + [_I] * 9 + [_P],
     "aig_sim_launch": [_P] * 5 + [_I] * 4 + [_P],
     "xnor_popcount_launch": [_P] * 3 + [_I] * 4 + [_P],
-    "fanin_matmul_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "fanin_matmul_launch": [_P] * 5 + [_I] * 11 + [_P],
     "flash_attention_launch": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     "flash_attention_backward_launch": [_P] * 10 + [_I] * 6 + [_F]
     + [_I] * 3 + [_P],

@@ -3,8 +3,13 @@
 Checks types, shapes and devices, allocates the output and launches the
 kernel on torch's current stream for CUDA tensors, or runs the plain
 version (``ref.py``) for CPU tensors; counts its launches in
-``.launches``. ``x``, ``w`` and ``bias`` share one type, float32,
-bfloat16 or float16, and the output has it. Indices follow the reference
+``.launches``. ``x``, ``w`` and ``bias`` are each float32, bfloat16 or
+float16, mixed as the reference kernel takes them: each product in
+``torch.promote_types(x, w)`` (JAX's promotion gives the same type for
+these three), summed in float32, the bias added in float32, the output
+in x's type. On the card a ``w`` or ``bias`` of another type than x's
+is cast to float32 first, which rounds nothing (the kernel's note says
+why the products then round as the reference's). Indices follow the reference
 kernel: one in ``[-n_in, 0)`` wraps, any other outside ``[0, n_in)``
 makes its output NaN; the kernel checks each index as it gathers.
 ``plan_fanin`` sizes the launch.
@@ -72,14 +77,15 @@ def fanin_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """FCP-sparse linear: x (B, n_in), idx / w (N, K), bias (N,) ->
     (B, N) in x's type. ``idx`` is cast to int32."""
     dev = x.device
-    if x.dtype not in DTYPE_CODES:
-        raise ValueError(f"x: expected float32, bfloat16 or float16, got "
-                         f"{x.dtype}")
+    for name, t in (("x", x), ("w", w), ("bias", bias)):
+        if t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{name}: expected float32, bfloat16 or "
+                             f"float16, got {t.dtype}")
     idx = idx.to(device=dev, dtype=torch.int32).contiguous()
     check_tensor("x", x, dev, 2, x.dtype)
     check_int32("idx", idx, dev, 2)
-    check_tensor("w", w, dev, 2, x.dtype)
-    check_tensor("bias", bias, dev, 1, x.dtype)
+    check_tensor("w", w, dev, 2, w.dtype)
+    check_tensor("bias", bias, dev, 1, bias.dtype)
     b, n_in = x.shape
     n, k = idx.shape
     if w.shape != (n, k) or bias.shape != (n,):
@@ -92,19 +98,29 @@ def fanin_matmul(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     check_tensor("out", out, dev, 2, x.dtype)
     if b == 0 or n == 0:
         return out
+    if w.dtype != x.dtype:
+        w = w.float()
+    if bias.dtype != x.dtype:
+        bias = bias.float()
     return launch_plan(x, idx, w, bias, out,
                        plan_fanin(b, n_in, n, x.dtype))
 
 
 def launch_plan(x, idx, w, bias, out, plan: FaninPlan) -> torch.Tensor:
     """Launch the kernel under ``plan`` on operands that ``fanin_matmul``
-    has checked (CUDA tensors), into ``out``; the wrapper passes
-    ``plan_fanin``'s plan, a measurement may pass another."""
+    has checked (CUDA tensors; ``w`` and ``bias`` of x's type or
+    float32), into ``out``; the wrapper passes ``plan_fanin``'s plan, a
+    measurement may pass another."""
     b, n_in = x.shape
     n, k = idx.shape
+    for name, t in (("w", w), ("bias", bias)):
+        if t.dtype not in (x.dtype, torch.float32):
+            raise ValueError(f"{name}: the kernel takes x's type or "
+                             f"float32, got {t.dtype}")
     err = build.library().fanin_matmul_launch(
         x.data_ptr(), idx.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n_in, n, k, DTYPE_CODES[x.dtype], plan.rows,
+        out.data_ptr(), b, n_in, n, k, DTYPE_CODES[x.dtype],
+        int(w.dtype != x.dtype), int(bias.dtype != x.dtype), plan.rows,
         int(plan.staged), plan.span, plan.smem_bytes, stream_of(x.device))
     build.check(err, "fanin_matmul")
     fanin_matmul.launches += 1

@@ -8,8 +8,10 @@ def fanin_matmul_ref(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """y[b, j] = sum_k x[b, idx[j, k]] * w[j, k] + bias[j] for x
     (B, n_in), idx and w (N, K), bias (N,), in the rounding of the
-    reference kernel: each product in the input type, the sum in float32
-    from k = 0 up, then the bias, then a cast to the input type.
+    reference kernel: each product in the promoted type of x and w
+    (``torch.promote_types``, which agrees with JAX's for float32,
+    bfloat16 and float16), the sum in float32 from k = 0 up, then the
+    bias in float32, then a cast to x's type.
 
     Indices follow the reference kernel's gather: one in ``[-n_in, 0)``
     reads column ``idx + n_in``; any other outside ``[0, n_in)`` gathers

@@ -21,7 +21,11 @@ tensors.
                              counts its launches in ``.launches`` and
                              each branch's in ``.branches`` ("wgmma":
                              bf16 at dh 64 or 128 with 16-byte aligned
-                             operands; "mma": the rest).
+                             operands; "mma": the rest, dh 129..256
+                             included).
+
+dh runs from 1 to 256 (``MAX_DH``); a wider head raises ``ValueError``
+on either device.
 
 A failed build or launch raises; nothing falls back to a plain version.
 """
@@ -38,7 +42,7 @@ from .. import build
 from ..common import check_tensor, require_cuda, stream_of
 from .ref import attention_backward_ref, attention_lse_ref, attention_ref
 
-MAX_DH = 128
+MAX_DH = 256                 # templates 16, 32, 64, 128, 192 and 256
 ROWS_PER_BLOCK = 16          # query rows per thread block of the forward
 BWD_ROWS_PER_BLOCK = 64      # keys (dK, dV) or rows (dQ) a backward block
 BWD_BRANCHES = ("mma", "wgmma")
@@ -203,12 +207,14 @@ def _backward_grid(b: int, sq: int, sk: int, h: int, kv: int, dh: int):
     """Blocks of each backward launch, of both branches: the wgmma
     kernel's (64-key block, b, KV head, head slice) items (at most one
     a query head), its row pass (8 rows a block) and last pass (1,024
-    elements a block); the mma.sync kernels' key and row blocks."""
+    elements a block); the mma.sync kernels' key blocks (two a key block
+    above dh 128, one for dK and one for dV) and row blocks."""
     rows_padded = -(-sq // 64) * 64
     return (-(-sk // 64) * b * h, -(-b * h * rows_padded // 8),
             -(-(b * sq * h + b * sk * kv) * dh // 1024),
             -(-sq // BWD_ROWS_PER_BLOCK) * b * h,
-            -(-sk // BWD_ROWS_PER_BLOCK) * b * kv, -(-b * sq * h // 8))
+            -(-sk // BWD_ROWS_PER_BLOCK) * b * kv * (2 if dh > 128 else 1),
+            -(-b * sq * h // 8))
 
 
 flash_attention_backward.launches = 0

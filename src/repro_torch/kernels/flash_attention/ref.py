@@ -11,7 +11,9 @@ backward: autograd through ``attention_ref``.
 Both take float32 or bfloat16 operands and round where the reference
 kernel rounds: scores in float32 from the operands, the softmax in
 float32, P rounded to v's type before P.V, which sums in float32, and
-the output returned in q's type.
+the output returned in q's type. Given float64 operands they compute
+in float64 throughout: the exact value that rounded versions are held
+to.
 """
 from __future__ import annotations
 
@@ -38,12 +40,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (BH, Sq, dh); k, v (BH, Sk, dh) -> (BH, Sq, dh) in q's type."""
     sq, sk = q.shape[1], k.shape[1]
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) * scale
     mask = _mask(sq, sk, causal, window, q.device)
-    s = torch.where(mask[None], s, torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(mask[None], s, torch.tensor(NEG_INF, device=q.device,
+                                                dtype=acc))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).to(acc), v.to(acc))
     return out.to(q.dtype)
 
 

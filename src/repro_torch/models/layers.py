@@ -227,9 +227,9 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
               window: int = 0) -> Tensor:
     """The prefill path's attention, q (B, S, H, dh), k, v (B, S, KV, dh).
 
-    On a CUDA tensor it is the hand-written ``flash_attention`` kernel,
-    which raises on a shape it does not take (dh > 128) rather than
-    handing it to a plain version. On a CPU tensor it is the twin of
+    On a CUDA tensor it is the hand-written ``flash_attention`` kernel
+    (dh up to 256), which raises on a shape it does not take (dh > 256)
+    rather than handing it to a plain version. On a CPU tensor it is the twin of
     the reference's ``full_attention``, or of ``chunked_attention``
     above ``ATTN_CHUNK_THRESHOLD`` tokens. On placed (DTensor) q, k, v
     each rank runs the same on its local heads (``_placed_attention``).

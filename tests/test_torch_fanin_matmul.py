@@ -193,17 +193,99 @@ def test_out_of_range_index_is_nan_whatever_the_weight():
 
 
 @pytest.mark.parametrize("x_t,w_t,b_t", [
-    (torch.float32, torch.bfloat16, torch.float32),
-    (torch.bfloat16, torch.bfloat16, torch.float32),
-    (torch.float16, torch.bfloat16, torch.float16),
-    (torch.float16, torch.float16, torch.float32),
+    (torch.float32, torch.float64, torch.float32),
+    (torch.float64, torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16, torch.float64),
+    (torch.bfloat16, torch.bfloat16, torch.int32),
     (torch.float64, torch.float64, torch.float64)])
 def test_mixed_or_other_types_raise(x_t, w_t, b_t):
+    """float64 (or an integer bias) in any place raises: the kernel takes
+    float32, bfloat16 and float16, mixed as the next test holds them."""
     with pytest.raises(ValueError):
         fanin_matmul(torch.zeros((2, 4), dtype=x_t),
                      torch.zeros((3, 2), dtype=torch.int32),
                      torch.zeros((3, 2), dtype=w_t),
                      torch.zeros(3, dtype=b_t))
+
+
+MIXED = [(x_t, w_t, b_t) for x_t in TYPES for w_t in TYPES for b_t in TYPES
+         if not x_t == w_t == b_t]
+
+
+@pytest.mark.parametrize("x_t,w_t,b_t", MIXED,
+                         ids=lambda d: str(d)[6:])
+def test_mixed_types_match_reference_kernel(x_t, w_t, b_t):
+    """Mixed float32 / bfloat16 / float16 operands against the reference
+    kernel (``fanin_matmul_pallas`` in interpret mode), which multiplies
+    in JAX's promoted type of x and w, sums in float32, adds the bias in
+    float32 and returns x's type: the output has x's type and the
+    reference's NaN positions. Values: bit for bit where XLA on the CPU
+    rounds as the kernel's source does (x in bfloat16 or float16 with a
+    product in float32 or float16); with x in float32 within 1e-5, the
+    float32 test's bound (XLA's float32 sum differs from the kernel's
+    by an ulp); with a bfloat16 product (x and w in bfloat16) within
+    2^-7 (sum |x w| + |bias| + |y|), the bound of the bfloat16 test:
+    XLA keeps that product in float32."""
+    x, idx, w, bias = _operands(len(MIXED), 19, 64, 40, 7, wild=True)
+    got = fanin_matmul(torch.from_numpy(x).to(x_t), torch.from_numpy(idx),
+                       torch.from_numpy(w).to(w_t),
+                       torch.from_numpy(bias).to(b_t))
+    assert got.dtype == x_t
+    want = ref_fanin(jnp.asarray(x).astype(TYPES[x_t][0]), jnp.asarray(idx),
+                     jnp.asarray(w).astype(TYPES[w_t][0]),
+                     jnp.asarray(bias).astype(TYPES[b_t][0]),
+                     interpret=True)
+    assert want.dtype == TYPES[x_t][0]
+    got = got.double().numpy()
+    want = np.asarray(want.astype(jnp.float32)).astype(np.float64)
+    nan = np.isnan(want)
+    assert nan.any() and (~nan).any()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    got, want = got[~nan], want[~nan]
+    if x_t == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    elif x_t == w_t == torch.bfloat16:
+        xr, wr, br = (a.astype(TYPES[t][1]).astype(np.float64)
+                      for a, t in ((x, x_t), (w, w_t), (bias, b_t)))
+        cols = np.where(idx < 0, idx + x.shape[1], idx).clip(
+            0, x.shape[1] - 1)
+        mag = (np.abs(xr[:, cols] * wr[None]).sum(-1) + np.abs(br))[~nan]
+        assert (np.abs(got - want) <= 2.0 ** -7 * (mag + np.abs(want))).all()
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("x_t,w_t,b_t", [
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float16, torch.bfloat16, torch.float16),
+    (torch.float32, torch.float16, torch.bfloat16)], ids=lambda d: str(d)[6:])
+def test_plain_version_rounds_mixed_types_where_the_source_does(x_t, w_t,
+                                                                 b_t):
+    """Mixed types through the plain version bit for bit against numpy
+    after ``fanin_matmul.py``: each product in the promoted type of x
+    and w, the float32 sum from k = 0, the bias in float32, x's type
+    out; NaN positions equal."""
+    x, idx, w, bias = _operands(6, 33, 70, 45, 11, wild=True)
+    ndt = {t: TYPES[t][1] for t in TYPES}
+    pdt = ndt[torch.promote_types(x_t, w_t)]
+    n = x.shape[1]
+    xs = np.concatenate([x.astype(ndt[x_t]),
+                         np.full((x.shape[0], 1), np.nan, ndt[x_t])], axis=1)
+    cols = np.where(idx < 0, idx.astype(np.int64) + n, idx)
+    cols = np.where((cols >= 0) & (cols < n), cols, n)
+    wt = w.astype(ndt[w_t])
+    acc = np.zeros((x.shape[0], idx.shape[0]), np.float32)
+    for k in range(idx.shape[1]):
+        acc = acc + (xs[:, cols[:, k]].astype(pdt)
+                     * wt[:, k].astype(pdt)).astype(np.float32)
+    want = (acc + bias.astype(ndt[b_t]).astype(np.float32)).astype(
+        ndt[x_t]).astype(np.float64)
+    got = fanin_matmul(torch.from_numpy(x).to(x_t), torch.from_numpy(idx),
+                       torch.from_numpy(w).to(w_t),
+                       torch.from_numpy(bias).to(b_t)).double().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
 
 
 @pytest.mark.parametrize("dtype,B,n_in,N,want", [

@@ -91,6 +91,46 @@ def test_attention_ref_repeats_kv_heads():
     np.testing.assert_array_equal(got.numpy(), full.numpy())
 
 
+@pytest.mark.parametrize("causal,win", [(True, 0), (False, 3), (True, 4)])
+def test_attention_ref_computes_float64_in_float64(causal, win):
+    """Given float64 operands the plain version computes in float64 (the
+    exact value the card's checks hold bf16 kernels to): a numpy float64
+    softmax attention within 1e-12, rows with every key masked the mean
+    of v; the reference's oracle (float32 scores) within 2e-5; and
+    autograd's gradients pass ``gradcheck``."""
+    q, k, v = _qkv(1, 30, 13, 4, 2, 6, seed=3)
+    tq, tk, tv = (torch.from_numpy(a).double() for a in (q, k, v))
+    got = attention_ref(tq, tk, tv, causal=causal, window=win)
+    assert got.dtype == torch.float64
+    kh, vh = (np.repeat(a.astype(np.float64), 2, axis=2) for a in (k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kh) / np.sqrt(6)
+    qpos, kpos = np.arange(30)[:, None], np.arange(13)[None, :]
+    mask = np.ones((30, 13), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if win:
+        mask &= kpos > qpos - win
+    s = np.where(mask, s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), vh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    if not mask[-1].any():
+        np.testing.assert_allclose(got.numpy()[0, -1], vh[0].mean(0),
+                                   rtol=1e-12, atol=1e-12)
+    flat = np.asarray(ref_oracle(*(jnp.asarray(a.transpose(0, 2, 1, 3)
+                                               .reshape(-1, a.shape[1], 6))
+                                   for a in (q, np.repeat(k, 2, axis=2),
+                                             np.repeat(v, 2, axis=2))),
+                                 causal=causal, window=win))
+    np.testing.assert_allclose(
+        got.numpy().transpose(0, 2, 1, 3).reshape(flat.shape), flat,
+        rtol=2e-5, atol=2e-5)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: attention_ref(a, b, c, causal=causal, window=win),
+        tuple(t[:, :8, :, :3].clone().requires_grad_(True)
+              for t in (tq, tk, tv)))
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
     (1, 64, 64, 2, 2, 32, True, 0),       # the reference's test_flash_bf16
     (2, 64, 64, 4, 2, 16, True, 0),       # GQA
@@ -126,10 +166,63 @@ def test_wrapper_rejects_bad_operands():
                    (torch.float16,) * 3):
         with pytest.raises(ValueError):
             flash_attention(*(qk.to(d) for d in dtypes))
-    with pytest.raises(ValueError):
-        flash_attention(torch.zeros((1, 4, 2, 130)),
-                        torch.zeros((1, 4, 2, 130)),
-                        torch.zeros((1, 4, 2, 130)))
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention(torch.zeros((1, 4, 2, 257)),
+                        torch.zeros((1, 4, 2, 257)),
+                        torch.zeros((1, 4, 2, 257)))
+
+
+def test_wrapper_takes_dh_up_to_256():
+    """dh 256 runs (the plain version here, the widest template on the
+    card); 257 raises, naming dh, in the forward and the backward."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 5, 5, 2, 1, 256))
+    out = flash_attention(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    out, lse = flash_attention_forward(q, k, v)
+    dq, dk, dv = flash_attention_backward(q, k, v, out, torch.ones_like(q),
+                                          lse)
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    wide = torch.zeros((1, 5, 2, 257))
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention_forward(wide, wide, wide)
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention_backward(wide, wide, wide, wide, wide,
+                                 torch.zeros((1, 2, 5)))
+
+
+# the wide heads: nemotron-4-340b's dh 192 and the widest template, 256;
+# GQA at nemotron's group of 12 query heads to a KV head
+WIDE_SHAPES = [
+    (1, 40, 40, 2, 1, 192, True, 0),      # causal
+    (1, 37, 37, 4, 2, 192, True, 9),      # window, ragged S
+    (1, 24, 24, 12, 1, 192, True, 0),     # GQA 12:1
+    (1, 20, 45, 2, 1, 192, True, 7),      # Sq < Sk, window
+    (1, 40, 40, 2, 1, 256, True, 0),
+    (1, 37, 37, 4, 2, 256, False, 9),     # window only
+    (1, 24, 24, 12, 1, 256, True, 0),
+    (1, 20, 45, 2, 1, 256, False, 0),     # Sq < Sk, no mask
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", WIDE_SHAPES)
+def test_wide_heads_match_reference_kernel(b, sq, sk, h, kv, dh, causal, win,
+                                           dtype, tol):
+    """dh 192 and 256 through the port's plain version (what the wrapper
+    runs on CPU tensors) against the reference's Pallas kernel in
+    interpret mode, whose blocks take the whole dh: float32 within 2e-4,
+    bfloat16 within 2e-2 (the reference test's tolerances)."""
+    q, k, v = (jnp.asarray(a, dtype)
+               for a in _qkv(b, sq, sk, h, kv, dh, seed=dh + sq))
+    want = np.asarray(ref_flash(q, k, v, causal=causal, window=win,
+                                interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32))
+                  .to(getattr(torch, dtype)) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=causal, window=win)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol)
 
 
 def _ref_multihead(q, k, v, causal, window):
@@ -159,6 +252,33 @@ def test_backward_plain_version_matches_reference_vjp(b, sq, sk, h, kv, dh,
     its wrapper's GQA layout: dq, dk, dv within 1e-5 in float32."""
     q, k, v = _qkv(b, sq, sk, h, kv, dh, seed=sq)
     dout = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: _ref_multihead(*a, causal, win),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_forward(tq, tk, tv, causal=causal, window=win)
+    got = flash_attention_backward(tq, tk, tv, out, torch.from_numpy(dout),
+                                   lse, causal=causal, window=win)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
+    (1, 24, 24, 12, 1, 192, True, 0),     # nemotron's group, causal
+    (1, 30, 30, 4, 2, 192, True, 8),      # window
+    (1, 20, 33, 2, 1, 256, False, 0),     # Sq < Sk
+    (1, 40, 12, 2, 1, 256, False, 4),     # fully masked rows
+])
+def test_wide_backward_matches_reference_vjp(b, sq, sk, h, kv, dh, causal,
+                                             win):
+    """The backward's plain version at dh 192 and 256 against
+    ``jax.vjp`` of the reference's oracle (``full_attention``'s
+    attention, differentiated by XLA): dq, dk, dv within 1e-5 in
+    float32."""
+    q, k, v = _qkv(b, sq, sk, h, kv, dh, seed=dh + sq)
+    dout = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
     _, vjp = jax.vjp(lambda *a: _ref_multihead(*a, causal, win),
                      *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(dout))

@@ -90,13 +90,15 @@ def pair(rng, shape, dtype="float32"):
 _MODELS = {}
 
 
-def models(name, dtype):
+def models(name, dtype, **over):
     """(reference cfg, reference params, port cfg, port params) of the
-    smoke config at ``dtype`` compute, the port's carried across."""
-    key = (name, dtype)
+    smoke config at ``dtype`` compute with the fields ``over`` replaced
+    (``d_head=192``), the port's carried across."""
+    key = (name, dtype, tuple(sorted(over.items())))
     if key not in _MODELS:
-        rcfg = dataclasses.replace(REF_SMOKES[name], compute_dtype=dtype)
-        cfg = dataclasses.replace(SMOKES[name], compute_dtype=dtype)
+        rcfg = dataclasses.replace(REF_SMOKES[name], compute_dtype=dtype,
+                                   **over)
+        cfg = dataclasses.replace(SMOKES[name], compute_dtype=dtype, **over)
         rp = rlm.init_params(rcfg, jax.random.PRNGKey(0))
         _MODELS[key] = (rcfg, rp, cfg,
                         lm_params_from_jax(cfg, jax.tree.map(np.asarray, rp)))
@@ -106,12 +108,12 @@ def models(name, dtype):
 _RUNS = {}
 
 
-def runs(name, dtype):
+def runs(name, dtype, **over):
     """forward, prefill and one decode_step of both packages on the same
     seeded tokens (B, S + 1): (reference outputs, port outputs)."""
-    key = (name, dtype)
+    key = (name, dtype, tuple(sorted(over.items())))
     if key not in _RUNS:
-        rcfg, rp, cfg, p = models(name, dtype)
+        rcfg, rp, cfg, p = models(name, dtype, **over)
         toks = np.random.default_rng(7).integers(
             0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         pos = np.full((B,), S, np.int32)
@@ -559,6 +561,59 @@ def test_decode_step_matches_reference(name, dtype):
             np.testing.assert_array_equal(c[key].numpy(), np.asarray(rc[key]))
         else:
             close(c[key], rc[key], TOL[dtype], key)
+
+
+# nemotron-4-340b's own head width at smoke width: d_model 64, 4 heads of
+# 192 (96 rotary dims, rotary_pct 0.5), relu^2; on the card these heads
+# take the flash kernel's 192 template
+WIDE = {"d_head": 192}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_head_forward_matches_reference(dtype):
+    rcfg, _, cfg, _ = models("nemotron-4-340b", dtype, **WIDE)
+    assert cfg.head_dim == rcfg.head_dim == 192
+    ref, got = runs("nemotron-4-340b", dtype, **WIDE)
+    assert got["hidden"].dtype == torch_dtype(dtype)
+    close(got["hidden"], ref["hidden"], TOL[dtype], "hidden")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_head_prefill_and_decode_match_reference(dtype):
+    """Prefill's logits and cache (k, v of 192-wide heads) and one
+    decode step's, against the reference; greedy tokens identical."""
+    ref, got = runs("nemotron-4-340b", dtype, **WIDE)
+    for step in ("prefill", "decode"):
+        close(got[step], ref[step], TOL[dtype], step)
+        np.testing.assert_array_equal(_np(got[step]).argmax(-1),
+                                      _np(ref[step]).argmax(-1))
+        rc, c = ref[step + "_cache"], got[step + "_cache"]
+        assert sorted(c) == sorted(rc)
+        assert c["k"].shape[-1] == 192
+        for key in rc:
+            if key == "positions":
+                np.testing.assert_array_equal(c[key].numpy(),
+                                              np.asarray(rc[key]))
+            else:
+                close(c[key], rc[key], TOL[dtype], f"{step} {key}")
+
+
+def test_wide_head_decode_matches_forward():
+    """prefill + decode_step against forward at dh 192, bf16, with the
+    reference test's tolerance and argmax (as ``test_decode_matches_
+    forward`` holds the other families)."""
+    cfg = dataclasses.replace(SMOKES["nemotron-4-340b"], **WIDE)
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32))
+    hidden, _, _ = lm.forward(cfg, p, toks)
+    want = lm.logits_head(cfg, p, hidden[:, -1]).float().numpy()
+    _, cache = lm.prefill(cfg, p, toks[:, :S], max_seq=S + 8)
+    got, _ = lm.decode_step(cfg, p, cache, toks[:, S:],
+                            torch.full((B,), S, dtype=torch.int32))
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0.1, atol=0.15)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.parametrize("name", ["glm4-9b", "falcon-mamba-7b",
