@@ -246,10 +246,13 @@ Phases, each printing its own lines:
                 launches, the single-request loop, decode against
                 forward, the kernel against its plain versions at a
                 served prefill and against the float64 attention at a
-                2,100-token one); the flash backward at dh 150 / 192 /
-                256 in both types; its train_4k attention (B 1, S
-                4,096, H 96, KV 8, dh 192, causal, bf16) forward and
-                backward under autograd, one launch each, the output,
+                2,100-token one; every served prefill through the wide
+                wgmma forward); the flash backward at dh 150 / 192 /
+                256 in both types (bf16 at 192 / 256 on the wgmma
+                branch, the rest on mma.sync); its train_4k attention
+                (B 1, S 4,096, H 96, KV 8, dh 192, causal, bf16) forward
+                and backward under autograd on the wgmma branches, one
+                launch each, the output,
                 dq, dk and dv held to their float64 values, a KV group
                 at a time: over the tensor and each 256 positions no
                 farther from them than EXACT_FWD_FACTOR (output) or
@@ -718,15 +721,35 @@ def phase_build():
     print(f"[build] xnor_popcount_kernel SASS: {n_bmma} BMMA instructions "
           "(binary mma on the tensor cores)")
     # the flash backward's wgmma branch: dh 64 and 128, warpgroup mma
-    wg = [n for n, _, _ in report if "flash_bwd_wgmma" in n]
-    require(len(wg) == 2, f"ptxas reported {len(wg)} flash_bwd_wgmma "
-            "kernels, expected 2 (dh 64 and 128)")
-    sass = sass_of(build.build().parent / build.LIB_NAME, "flash_bwd_wgmma")
+    wg = [n for n, _, _ in report if n.startswith("flash_bwd_wgmma_kernel<")]
+    require(len(wg) == 2, f"ptxas reported {len(wg)} flash_bwd_wgmma_kernel "
+            "instances, expected 2 (dh 64 and 128)")
+    lib = build.build().parent / build.LIB_NAME
+    sass = sass_of(lib, "flash_bwd_wgmma_kernel")
     n_gmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
     require(n_gmma > 0, "flash_bwd_wgmma_kernel has no HGMMA (warpgroup "
             "mma) instruction in its SASS")
     print(f"[build] flash_bwd_wgmma_kernel SASS (dh 64 and 128): {n_gmma} "
           "HGMMA instructions (wgmma on the tensor cores)")
+    # the wide wgmma branch (bf16 at dh 192 and 256, NC = dh / 64 = 3, 4):
+    # the forward and the backward's dK / dV and dQ passes, none spilling
+    by_name = {n: (regs, stack) for n, regs, stack in report}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_bwd_wgmma_dkdv_kernel",
+                   "flash_bwd_wgmma_dq_kernel"):
+        for nc in (3, 4):
+            name = f"{kernel}<{nc}>"
+            require(name in by_name, f"ptxas reported no {name}")
+            regs, stack = by_name[name]
+            require(stack.startswith("0 bytes stack frame, 0 bytes spill"),
+                    f"{name} keeps a stack frame or spills: {stack}")
+            print(f"[build] wide wgmma {name} (dh {64 * nc}): {regs}; "
+                  f"{stack}")
+        n_gmma = sum(1 for ln in sass_of(lib, kernel).splitlines()
+                     if "HGMMA" in ln)
+        require(n_gmma > 0, f"{kernel} has no HGMMA (warpgroup mma) "
+                "instruction in its SASS")
+        print(f"[build] {kernel} SASS (dh 192 and 256): {n_gmma} HGMMA "
+              "instructions")
     # the wide templates: the forward and the mma.sync backward at dh 192
     # and 256 in both types; none of nemotron-4-340b's (bf16, 192) spills
     wide = {}
@@ -2810,7 +2833,8 @@ def flash_row(torch, name, q, k, v, kw, launches, err):
            "ms": time_ms(fn), "plain_ms": time_ms(
                lambda: attention_ref(q, k, v, **kw), iters=20, reps=3),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa)}
-    dev_us = device_time(fn, "flash_attention", 20).launch_us
+    # the call launches one kernel: the mma.sync or the wgmma forward
+    dev_us = device_time(fn, "flash_", 20).launch_us
     sdpa_us = device_time(sdpa, None, 20).call_us
     return row, dev_us, sdpa_us, n_bytes, flops
 
@@ -3968,14 +3992,23 @@ def phase_lm_wide(torch, card, errs):
     cfg = dataclasses.replace(get_arch(WIDE_ARCH), n_layers=WIDE_LAYERS)
     require(cfg.head_dim == 192 and cfg.d_model == 18432,
             f"{WIDE_ARCH}: dh {cfg.head_dim}, d_model {cfg.d_model}")
+    fwd0 = dict(flash_attention.branches)
     row_j = serve_full_width(torch, card, errs, cfg, "lm_wide")
     peak_serve = torch.cuda.max_memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 2. the backward's wide templates at small shapes, both types
+    # served: every prefill through the wide wgmma forward (Sq 32, two
+    # heads packed a tile)
+    took = {b_: flash_attention.branches[b_] - fwd0.get(b_, 0)
+            for b_ in ("mma", "wgmma")}
+    require(took["mma"] == 0 and took["wgmma"] >= LM_REQUESTS * cfg.n_layers,
+            f"lm_wide: the served prefills' forward branches {took}")
+
+    # 2. the backward's wide templates at small shapes, both types: bf16 at
+    # dh 192 and 256 on the wgmma branch, float32 and dh 150 on mma.sync
     branches0 = dict(flash_attention_backward.branches)
-    small = {}
+    small, want = {}, {"mma": 0, "wgmma": 0}
     rng = torch.Generator(device=dev).manual_seed(9)
     for (b_, s_, h_, kv_, dh_), kw in WIDE_SMALL:
         for dtype in (torch.float32, torch.bfloat16):
@@ -3984,14 +4017,16 @@ def phase_lm_wide(torch, card, errs):
                                      (b_, s_, kv_, dh_)))
             name = f"{(b_, s_, h_, kv_, dh_)} {kw} {str(dtype)[6:]}"
             flash_grads_close(torch, small, name, q, k, v, kw)
-    took = flash_attention_backward.branches["mma"] - branches0.get("mma", 0)
-    require(took == 2 * len(WIDE_SMALL) and
-            flash_attention_backward.branches["wgmma"] ==
-            branches0.get("wgmma", 0),
-            f"lm_wide: the wide backward took {took} mma launches")
+            want["wgmma" if dtype == torch.bfloat16 and dh_ in (192, 256)
+                 else "mma"] += 1
+    took = {b_: flash_attention_backward.branches[b_] - branches0.get(b_, 0)
+            for b_ in ("mma", "wgmma")}
+    require(took == want, f"lm_wide: the wide backward's branches {took}, "
+            f"expected {want}")
     print("[lm_wide] flash backward at the wide templates within 2e-4 "
-          "(float32) / 2e-2 (bf16) x max(1, max |plain|), the mma branch: "
-          + "; ".join(f"{k_}: {e:.3g}" for k_, e in sorted(small.items())))
+          "(float32) / 2e-2 (bf16) x max(1, max |plain|), branches "
+          f"{took}: " + "; ".join(f"{k_}: {e:.3g}"
+                                  for k_, e in sorted(small.items())))
 
     # 3. the train_4k attention shape under autograd, from counts at 0
     b_, s_, h_, kv_, dh_ = WIDE_TRAIN
@@ -4003,6 +4038,7 @@ def phase_lm_wide(torch, card, errs):
     kw = {"causal": True, "window": 0}
     qg, kg, vg = (t_.detach().requires_grad_(True) for t_ in (q, k, v))
     branches0 = dict(flash_attention_backward.branches)
+    fwd0 = dict(flash_attention.branches)
     reset_launch_counts()
     out = flash_attention(qg, kg, vg, **kw)
     grads = torch.autograd.grad(out, (qg, kg, vg), dout)
@@ -4010,10 +4046,13 @@ def phase_lm_wide(torch, card, errs):
     counts = launch_counts()
     n_fwd, n_bwd = counts["flash_attention"], counts["flash_attention_backward"]
     require(n_fwd == 1 and n_bwd == 1 and
-            flash_attention_backward.branches["mma"] ==
-            branches0.get("mma", 0) + 1,
+            flash_attention.branches["wgmma"] == fwd0.get("wgmma", 0) + 1
+            and flash_attention_backward.branches["wgmma"] ==
+            branches0.get("wgmma", 0) + 1,
             f"lm_wide: train_4k attention launched the forward {n_fwd} and "
-            f"the backward {n_bwd} times ({dict(flash_attention_backward.branches)})")
+            f"the backward {n_bwd} times (forward branches "
+            f"{dict(flash_attention.branches)}, backward "
+            f"{dict(flash_attention_backward.branches)})")
     out = out.detach()
     del qg, kg, vg
     with torch.no_grad():
@@ -4122,9 +4161,10 @@ def phase_lm_wide(torch, card, errs):
           f"within {LM_KERNEL_TOL} x max(1, |exact|)); {n_fwd} launch on "
           f"{card}")
     print(f"[lm_wide] flash backward there (FlashAttention under autograd, "
-          f"the mma branch, dK and dV from two blocks a key block): "
+          f"the wgmma branch: dK and dV a 64-key block by two warpgroups, "
+          f"dQ a pass of its own): "
           f"{row_l['ms']:.5f} ms, device {us_text(nem['device_us'])} a call ("
-          + "; ".join(f"{re.search(r'flash_bwd_(wide_)?[a-z]+', k_).group(0)} "
+          + "; ".join(f"{re.search(r'flash_bwd_[a-z_]+?_kernel', k_).group(0)} "
                       f"{t_:.2f} us" for k_, t_ in sorted(
                           nem["kernels_us"].items()))
           + f"); plain (a KV group at a time) {row_l['plain_ms']:.5f} ms; "

@@ -13,9 +13,10 @@ ms a call, its device µs a call, whole and by kernel, SDPA's backward
 alone (``torch.autograd.grad`` of one forward: the same gradients) the
 same two ways, and SDPA's forward and backward together on the device.
 SDPA is the yardstick only; the port never calls it. ``pass_bytes``
-gives the least bytes of the wgmma branch's first and last passes (its
-float32 workspace included) and their time at the card's memory rate
-(null at a shape the mma.sync branch takes).
+gives the least bytes of the dh 64 / 128 wgmma branch's first and last
+passes (its float32 workspace included) and their time at the card's
+memory rate (null at other widths). A forward's device time counts the
+one kernel it launches, of either branch.
 
 ``--src DIR`` imports the kernel package from another checkout's
 ``src`` (a ``git archive`` of the parent under ``build/``), so two
@@ -94,10 +95,8 @@ def forward_times(torch, device_time, q, k, v) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True)
         return {"fwd_ms": events_ms(torch, serve),
                 "fwd_lse_ms": events_ms(torch, train),
-                "fwd_device_us": device_time(
-                    serve, "flash_attention_kernel").launch_us,
-                "fwd_lse_device_us": device_time(
-                    train, "flash_attention_kernel").launch_us,
+                "fwd_device_us": device_time(serve, "flash_").launch_us,
+                "fwd_lse_device_us": device_time(train, "flash_").launch_us,
                 "sdpa_fwd_device_us": device_time(sdpa).call_us}
 
 

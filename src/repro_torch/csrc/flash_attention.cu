@@ -58,26 +58,61 @@
 //    every fragment read is free of bank conflicts; dh is zero-padded to
 //    the template width (16, 32, 64, 128, 192, 256) in shared memory
 //    only, and keys past the block's range are zero-filled.
-//  * The wide templates (dh 129..192 and 193..256; nemotron-4-340b's
-//    heads are 192 wide) keep the block's shape and change its tile.
-//    Four slices of three stages of 32 keys would take 307,200 B of
-//    rings at 192 in bf16, over the 232,448 B a block may have, and the
-//    Q fragments and a 16 x DHP accumulator in registers would take 64 +
-//    128 of a thread's 255 at 256. So a step is 16 keys in bf16 and 8 in
-//    float32, Q's 16 rows of the block's heads sit in shared memory
-//    (copied once, read as the A operand each step, as the backward's
-//    products read theirs) instead of in registers, and float32 at 256
-//    keeps two stages: rings + Q come to 166,400 B (bf16, 192), 219,648
-//    (bf16, 256), 175,616 (float32, 192) and 166,400 (float32, 256),
-//    and the merge area (at most 133,120 B) fits in them. Smaller steps
-//    mean more barriers and copies per key; these templates are made
-//    right first, not fast.
+//  * The wide mma.sync templates (dh 129..192 and 193..256 in float32,
+//    at other dh than 192 and 256, or with operands not 16-byte aligned;
+//    bf16 at 192 and 256 takes the wgmma kernel below) keep the block's
+//    shape and change its tile. Four slices of three stages of 32 keys
+//    would take 307,200 B of rings at 192 in bf16, over the 232,448 B a
+//    block may have, and the Q fragments and a 16 x DHP accumulator in
+//    registers would take 64 + 128 of a thread's 255 at 256. So a step
+//    is 16 keys in bf16 and 8 in float32, Q's 16 rows of the block's
+//    heads sit in shared memory (copied once, read as the A operand each
+//    step) instead of in registers, and float32 at 256 keeps two stages:
+//    rings + Q come to 166,400 B (bf16, 192), 219,648 (bf16, 256),
+//    175,616 (float32, 192) and 166,400 (float32, 256), and the merge
+//    area (at most 133,120 B) fits in them. These are made right, not
+//    fast.
 //  * Heaviest first: with a causal mask the grid is ordered from the
 //    last row tile (the most keys) to the first.
-//  * wgmma is not used: it needs 64-row tiles per warpgroup, which
-//    would cut the bench shape to 32 blocks. At this size the work is
-//    a few microseconds at the mma.sync rate; the copies and the latency
-//    of each step set the time, not the peak rate.
+//  * The templates up to 128 do not use wgmma: it needs 64-row tiles per
+//    warpgroup, which would cut the bench shape to 32 blocks. At this
+//    size the work is a few microseconds at the mma.sync rate; the copies
+//    and the latency of each step set the time, not the peak rate.
+//
+// The wide wgmma forward (flash_fwd_wgmma_kernel: bf16 at dh 192 or 256,
+// q, k and v 16-byte aligned). At nemotron-4-340b's train_4k attention
+// (B 1, S 4,096, H 96, KV 8, dh 192, causal) the forward does 4 dh
+// operations a kept pair, 6.19e11 in all: 626 us at the bf16 tensor-core
+// rate, against 98 us for its 329 MB of q, k, v, out and lse. The tensor
+// cores bound it, and 64-row tiles leave 3,072 blocks there, so:
+//  * wgmma for both products: S = Q K^T as NC x 4 m64n64k16 steps with Q
+//    and K in shared memory; O += P V as 4 m64n{192,256}k16 steps with P
+//    (rounded to bf16) the register A operand and V read MN-major. O is
+//    dh / 2 registers a thread, S 32, P 16.
+//  * A block is two warpgroups of 64 rows, of two query heads that read
+//    one KV head (one where the group is odd): each K and V tile copied
+//    serves both. Q arrives once by TMA; K and V in 64-key tiles through
+//    two rings of two slots, each slot with a full mbarrier and a count
+//    of the warps done with it: the last of them refills it, so no warp
+//    waits for another's progress (a refill by thread 0 after waiting for
+//    every warp held warpgroup 0 in step with warpgroup 1). Shared
+//    memory: Q 2 x 24 KB, the rings 4 x 24 KB at 192 (148,608 B with the
+//    barriers and alignment); 2 x 32 and 4 x 32 KB at 256 (197,760 B).
+//  * Within a warpgroup S of the next key tile runs on the tensor cores
+//    while the warps compute the softmax of this one; the two
+//    warpgroups' phases interleave on the SM.
+//  * A short Sq (a served prefill: nemotron's 32 rows) would leave half
+//    of a 64-row tile empty: HP = 2, 4 or 8 heads of the group are
+//    packed into one tile of 64 / HP rows each (TMA's box of HP heads x
+//    64 / HP rows writes them as 64 lines), so one block reads K and V
+//    once for 2 HP heads.
+//  * Heaviest first under a causal mask; tiles past the causal or window
+//    range are not visited, keys and rows past Sk and Sq read as zero
+//    (TMA) and are masked.
+//  * The same results as the mma.sync kernel where it defines them: the
+//    NEG_INF mask, log2(e) folded into the scale, P rounded to bf16
+//    before P V, the sums in float32, division by max(l, 1e-30), the
+//    mean of v over Sk for a row whose every key is masked (lse +inf).
 // Ragged Sq and Sk are masked in the kernel, nothing is padded in device
 // memory. exp2f with log2(e) folded into the scale, no fast math.
 
@@ -107,6 +142,16 @@ cudaError_t backward(const void* q, const void* k, const void* v,
                      float* D, void* dq, void* dk, void* dv, int B, int H,
                      int KV, int Sq, int Sk, int dh, float scale, int causal,
                      int window, int cw_shift, int bf16, cudaStream_t s);
+// the wgmma branch of the same widths (bf16 at dh 192 or 256)
+cudaError_t forward_wgmma(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int B, int H, int KV, int Sq,
+                          int Sk, int dh, float scale, int causal, int window,
+                          cudaStream_t s);
+cudaError_t backward_wgmma(const void* q, const void* k, const void* v,
+                           const void* out, const void* dout, const float* lse,
+                           float* work, void* dq, void* dk, void* dv, int B,
+                           int H, int KV, int Sq, int Sk, int dh, float scale,
+                           int causal, int window, cudaStream_t s);
 }  // namespace repro_flash_wide
 
 namespace {
@@ -771,9 +816,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //
 // dQ, dK and dV of the forward above from q, k, v, out, dout and the
 // forward's per-row log-sum-exp. Two branches, chosen by the entry point:
-// the wgmma branch for bf16 at dh 64 or 128 with 16-byte aligned operands
-// (the training path's case), the mma.sync kernels for the rest (float32,
-// other dh, misaligned operands).
+// the wgmma branch for bf16 at dh 64, 128, 192 or 256 with 16-byte
+// aligned operands (the training path's case; 192 and 256 in a design of
+// their own, the last note of this section), the mma.sync kernels for
+// the rest (float32, other dh, misaligned operands).
 //
 // What bounds it on this card. A kept (query row, key) pair costs 10 dh
 // operations: S = Q K^T, dP = dout V^T, dV += P^T dout, dK += dS^T Q and
@@ -858,18 +904,58 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //     double-buffered): S = Q K^T, dP = dout V^T, dS as above, dQ += dS K.
 //     (S and dP twice a kept pair: these kernels serve small and float32
 //     shapes, off the bf16 training path.)
-// The wide templates (dh 129..256, the steps of the forward's Tile: 16
-// rows or keys in bf16, 8 in float32) split step 2 over two blocks a key
-// block, one summing dV and one dK: two [DHP / 8][4] float32
+// The wide mma.sync templates (dh 129..256, the steps of the forward's
+// Tile: 16 rows or keys in bf16, 8 in float32) split step 2 over two
+// blocks a key block, one summing dV and one dK: two [DHP / 8][4] float32
 // accumulators are 192 registers a thread at dh 192 and 256 at 256, past
-// the 255 a thread may have before any fragment, and one is 96 or 128.
-// The dV block computes S^T and dV += P^T dout (4 dh a kept pair), the
-// dK block S^T, dP^T and dK += dS^T Q (6 dh): S^T twice, 2 dh more than
-// the one block's 8, so with step 3 the mma.sync branch does 16 dh a
-// kept pair against the 10 dh of the bound; both blocks copy the same
-// Q and dout steps (adjacent in the grid, so the second copy comes from
-// L2). Splitting dh between two warps instead would recompute S^T and
-// dP^T both (4 dh more).
+// the 255 a thread may have before any fragment. The dV block computes
+// S^T and dV += P^T dout (4 dh a kept pair), the dK block S^T, dP^T and
+// dK += dS^T Q (6 dh): with step 3 the mma.sync branch does 16 dh a kept
+// pair against the 10 dh of the bound.
+//
+// The wide wgmma branch (bf16 at dh 192 or 256, 16-byte aligned). At
+// nemotron-4-340b's train_4k attention (B 1, S 4,096, H 96, KV 8, dh 192,
+// causal) the bound's 10 dh a kept pair are 1.55e12 operations, 1,564 us
+// at the bf16 tensor-core rate (its bytes, 656 MB, 196 us). Four launches:
+//  1. flash_bwd_wide_prep_kernel: lse2 and D per row, as the dh 64 / 128
+//     branch stages them (no dQ accumulator);
+//  2. flash_bwd_wgmma_dkdv_kernel: a block owns 64 keys of one (b, KV
+//     head) and walks the query heads of its head slice (the fewest
+//     slices, dividing the group, that give two blocks an SM: one at
+//     train_4k, where 512 blocks walk 12 heads each). One warpgroup holds
+//     dK and dV of 64 keys only with dh registers a thread (192 at dh
+//     192, before S^T, dP^T and their fragments), so the block's two
+//     warpgroups split the work by product instead: warpgroup 0 computes
+//     S^T = K Q^T, P^T, and dV += P^T dout; warpgroup 1 dP^T = V dout^T,
+//     dS^T = P^T (dP^T - D) and dK += dS^T Q. S^T and dP^T are computed
+//     once a kept pair; P^T crosses as float32 through 16 KB of shared
+//     memory in the accumulator's order (two named barriers a step, one
+//     each way). Each warpgroup holds one 64 x dh accumulator, dh / 2
+//     registers a thread, and stores it as the slice's float32 partial.
+//     Shared memory: K, V and two stages of (Q, dout, lse2 and D) and
+//     P^T: 167,040 B at 192, 216,192 at 256.
+//  3. flash_bwd_wgmma_dq_kernel: a block owns 64 rows of one or two
+//     query heads (a warpgroup each) and streams their key range: S = Q
+//     K^T and dP = dout V^T again, dS in registers, dQ += dS K. dQ so
+//     costs 4 dh a kept pair more than dS from step 2 would (14 dh in
+//     all against the 10 of the bound), but one block sums every key of
+//     a row in key order: dq is the same bit for bit on every launch,
+//     which bulk reductions from the key blocks would not give. K and V
+//     come through rings of two tiles; at 256 V has one slot (two would
+//     take 262,144 B with Q and dout): dP reads V first in a step, so
+//     the next V loads while dS and dQ are computed. Shared memory:
+//     198,784 B at 192, 231,552 at 256.
+//  4. flash_bwd_finish_kernel (the dh 64 / 128 branch's, without dq):
+//     dk and dv from the slices' partials summed in order 0, 1, ..., and
+//     dV's share from fully masked rows. dk and dv are bit for bit on
+//     every launch too.
+// Products as in the dh 64 / 128 branch: m64n64k16 wgmma with both
+// operands in shared memory for S^T, dP^T, S and dP; m64n{192,256}k16
+// with P^T, dS^T or dS (bf16) the register A operand and dout, Q or K
+// read MN-major for the sums over rows or keys. P and dS take exp2f, as
+// the mma.sync kernels do. The last warp done with a tile slot refills it
+// (last_reader): thread 0 waiting for every warp before a refill held the
+// warpgroups in step, and the backward at train_4k took 1.2x as long.
 // dK and dQ are scaled by 1/sqrt(dh) when they are stored. A query row
 // whose every key is masked (a window with i >= Sk + window - 1) took
 // the mean of v forward: it gives dQ = 0, nothing to dK, and
@@ -1607,6 +1693,704 @@ __global__ void flash_bwd_finish_kernel(
   ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
 }
 
+// ---- the wide templates' wgmma branch (bf16, dh 192 or 256) ------------
+//
+// Three kernels of one design, for bf16 at dh 192 and 256 with 16-byte
+// aligned operands (the note at the top of this file and the backward's
+// note say why and what they cost): the forward, and the backward's dK /
+// dV and dQ passes between the prep pass and the finish pass. Every tile
+// is 64 rows of NC = dh / 64 TMA boxes of 64 columns, 128-byte swizzled,
+// read by wgmma as it lies: S-like products (the reduction over dh) as
+// NC x 4 m64n64k16 steps with both operands in shared memory, the
+// products that sum over keys or rows into a dh-wide accumulator as 4
+// m64n{192,256}k16 steps with the A operand (P, dS, P^T or dS^T, rounded
+// to bf16) in registers and the B tile read MN-major. Thread 0 issues
+// the first copies; each tile slot has a full mbarrier and a count of
+// the warps done with it (last_reader), and the last of them issues the
+// slot's next copy: no block barrier and no wait for a free slot runs in
+// the loops.
+
+constexpr int kWideTarget = 264;         // dK / dV blocks wanted: 2 a SM
+
+// Forward: the warpgroups' Q, a ring of two K tiles and one of two V
+// tiles, the mbarriers (Q; K, V full) and the slots' reader counts last.
+template <int NC>
+struct FwdWgSmem {
+  static constexpr int kTile = NC * kWgTile;     // 64 rows x dh
+  static constexpr int kK = 2 * kTile;
+  static constexpr int kV = 4 * kTile;
+  static constexpr int kBars = 6 * kTile;
+  static constexpr int kBytes = kBars + 128 + 1024;      // + 1024 to align
+};
+
+// dQ: per warpgroup its Q and dout tiles, a ring of two K tiles, one of
+// kVS V tiles (one at 256, where two do not fit in 227 KB: V is read by
+// dP only, so the next one loads while dS and dQ are computed), then
+// the warpgroups' lse2 and D (512 bytes each) and the mbarriers.
+template <int NC>
+struct DqWgSmem {
+  static constexpr int kTile = NC * kWgTile;
+  static constexpr int kVS = NC == 4 ? 1 : 2;
+  static constexpr int kK = 4 * kTile;
+  static constexpr int kV = kK + 2 * kTile;
+  static constexpr int kLd = kV + kVS * kTile;
+  static constexpr int kBars = kLd + 1024;
+  static constexpr int kBytes = kBars + 128 + 1024;
+};
+
+// dK / dV: the block's K and V, a ring of two stages (Q, dout, and the
+// rows' lse2 and D in a 1024-byte slot), P^T as float32 in the
+// accumulator's order (warpgroup 0 writes it, warpgroup 1 reads it), the
+// mbarriers.
+template <int NC>
+struct DkvWgSmem {
+  static constexpr int kTile = NC * kWgTile;
+  static constexpr int kStage = 2 * kTile + 1024;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kX = kRing + 2 * kStage;
+  static constexpr int kBars = kX + 64 * 64 * 4;
+  static constexpr int kBytes = kBars + 128 + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// One warp (its lane 0) is done with a tile slot, which `readers` warps
+// read: true for the last of them, which then refills the slot. The count
+// is never reset: a round ends before the next begins, since the next
+// round reads the refill.
+__device__ __forceinline__ bool last_reader(unsigned* count, int readers) {
+  return (atomicAdd(count, 1u) + 1) % readers == 0;
+}
+
+// The forward. A block owns HB warpgroups (HB = 2 where the heads of a
+// KV head pair up), each 64 lines of Q: 64 rows of one head, or, for
+// short Sq, R = 64 / HP rows of HP heads of the group packed into one
+// tile (line = row x HP + head: TMA's box of HP heads x R rows writes
+// them so). Every warpgroup of the block reads the same rows and so the
+// same key tiles, streamed from `lo` in steps of 64 through the rings.
+// Per step: S = Q K^T; the mask, the running max m and sum l (log2 units:
+// log2(e) is folded into the scale), P = 2^(S - m) rounded to bf16 as
+// the A operand of O += P V. At the end O / max(l, 1e-30) in bf16, each
+// row's log-sum-exp, and the mean of v over Sk for a row whose every
+// key is masked (its lse +inf), as the mma.sync kernel gives them.
+template <int NC>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int B, int H, int KV, int Sq,
+                       int Sk, float scale, int causal, int window, int HB,
+                       int HP) {
+  using namespace hopper;
+  using L = FwdWgSmem<NC>;
+  constexpr int dh = NC * 64, kTile = L::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+
+  // heaviest first: under a causal mask the last row tiles see most keys
+  const int G = H / KV, R = 64 / HP, n_hs = G / (HB * HP);
+  const int units = B * KV * n_hs, n_rt = (Sq + R - 1) / R;
+  int rt = blockIdx.x / units;
+  int rem = blockIdx.x - rt * units;
+  if (causal) rt = n_rt - 1 - rt;
+  const int hs = rem % n_hs;
+  rem /= n_hs;
+  const int kvh = rem % KV, b = rem / KV;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int w = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  const int hb0 = kvh * G + hs * HB * HP;        // the block's first head
+  const int r0 = rt * R;
+  const int q_last = min(Sq, r0 + R) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, r0 - window + 1) : 0;
+  const int n = hi > lo ? (hi - lo + 63) / 64 : 0;
+
+  unsigned char* s_q = smem + wg * kTile;
+  unsigned char* s_k = smem + L::kK;
+  unsigned char* s_v = smem + L::kV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t *q_full = bars, *k_full = bars + 1, *v_full = bars + 3;
+  unsigned* readers = reinterpret_cast<unsigned*>(bars + 5);   // [K, V][2]
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bars + i, 1);
+    for (int i = 0; i < 4; ++i) readers[i] = 0;
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* full,
+                  int j) {                       // one thread: key tile j
+    mbar_expect_tx(full + (j & 1), kTile);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+      tma_load_4d(ring + (j & 1) * kTile + cc * kWgTile, map, full + (j & 1),
+                  cc * 64, kvh, lo + 64 * j, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, HB * kTile);
+    for (int x = 0; x < HB; ++x)
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+        tma_load_4d(smem + x * kTile + cc * kWgTile, &tq, q_full, cc * 64,
+                    hb0 + x * HP, r0, b);
+    for (int j = 0; j < 2 && j < n; ++j) {
+      load(&tk, s_k, k_full, j);
+      load(&tv, s_v, v_full, j);
+    }
+  }
+
+  // this thread's lines 16 w + g + 8 hr: row r0 + line / HP
+  int row[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) row[hr] = r0 + (16 * w + g + 8 * hr) / HP;
+  const float cs = scale * kLog2e;
+  float acc[32 * NC];
+#pragma unroll
+  for (int e = 0; e < 32 * NC; ++e) acc[e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  // S = Q K^T of key tile j into d, as one wgmma group
+  auto scores = [&](float (&d)[32], int j) {
+    mbar_wait(k_full + (j & 1), (j >> 1) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(d, desc128(s_q + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(s_k + (j & 1) * kTile + cc * kWgTile + kk * 32,
+                               0, 1024),
+                       cc | kk);
+    wgmma_commit();
+  };
+  // this warp is done with key tile j's K (kind 0) or V: the last of the
+  // block's warps to say so refills the slot with tile j + 2
+  auto release = [&](int kind, int j) {
+    if (lane == 0 && last_reader(readers + 2 * kind + (j & 1), 4 * HB) &&
+        j + 2 < n) {
+      if (kind)
+        load(&tv, s_v, v_full, j + 2);
+      else
+        load(&tk, s_k, k_full, j + 2);
+    }
+  };
+  mbar_wait(q_full, 0);
+  float sc[32], sn[32];
+  if (n > 0) {
+    scores(sc, 0);
+    wgmma_wait<0>();
+    release(0, 0);
+  }
+
+  // Step j: S of tile j + 1 runs on the tensor cores while this warp
+  // computes the softmax of tile j; then O += P V of tile j.
+  for (int j = 0; j < n; ++j) {
+    const int s = j & 1;
+    const int kw = lo + 64 * j;
+    const bool more = j + 1 < n;
+    if (more) scores(sn, j + 1);
+
+    // element 4 nb + r: line 16 w + g + 8 (r >> 1), key kw + 8 nb + 2c +
+    // (r & 1); a step whose every key is kept for every row skips the mask
+    const bool full = kw + 64 <= Sk && (!causal || kw + 63 <= r0) &&
+                      (window <= 0 || kw > r0 + R - 1 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = kw + 8 * nb + 2 * c + (r & 1), i = row[r >> 1];
+        const bool keep = full || (key < Sk && (!causal || key <= i) &&
+                                   (window <= 0 || key > i - window));
+        sc[4 * nb + r] = keep ? sc[4 * nb + r] * cs : kNegInf;
+        mx[r >> 1] = fmaxf(mx[r >> 1], sc[4 * nb + r]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      corr[hr] = exp2f(m[hr] - m_new);
+      m[hr] = m_new;
+      l[hr] *= corr[hr];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += sc[e];                  // this thread's columns
+    }
+    // P as A fragments, k16 step kk = keys 16 kk .. 16 kk + 15
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    // O += P V of tile j - 1 is done (groups complete in order; S of
+    // tile j + 1 may still run): O may be rescaled, V j - 1 is free
+    if (more)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    if (j > 0) release(1, j - 1);
+    // most steps move no row's max past the tiles before: a warp whose
+    // every factor is 1 skips the dh / 2 multiplications (the same bits)
+    if (!__all_sync(0xffffffffu, corr[0] == 1.0f && corr[1] == 1.0f)) {
+#pragma unroll
+      for (int e = 0; e < 32 * NC; ++e) acc[e] *= corr[(e >> 1) & 1];
+    }
+    mbar_wait(v_full + s, (j >> 1) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_wide<NC>(acc, pa[kk],
+                        desc128(s_v + s * kTile + kk * 2048, kWgTile, 1024),
+                        1);
+    wgmma_commit();
+    if (more) {                          // S of tile j + 1 is done
+      wgmma_wait<1>();
+      release(0, j + 1);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = sn[e];
+    }
+  }
+  wgmma_wait<0>();
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
+    l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
+  }
+  const int row_elems = KV * dh;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int line = 16 * w + g + 8 * hr, i = row[hr];
+    const int hh = hb0 + wg * HP + line % HP;
+    if (i >= Sq) continue;
+    const int row_lo = window > 0 ? max(0, i - window + 1) : 0;
+    const int row_hi = causal ? min(Sk, i + 1) : Sk;
+    const bool live = row_lo < row_hi;
+    const float inv = 1.0f / fmaxf(l[hr], 1e-30f);
+    __nv_bfloat16* o = out + ((size_t(b) * Sq + i) * H + hh) * dh;
+#pragma unroll
+    for (int nb = 0; nb < 8 * NC; ++nb) {
+      const int d = 8 * nb + 2 * c;
+      float x0 = acc[4 * nb + 2 * hr] * inv, x1 = acc[4 * nb + 2 * hr + 1] * inv;
+      if (!live) {                       // every key masked: mean of v
+        x0 = x1 = 0.0f;
+        const __nv_bfloat16* vr = v + size_t(b) * Sk * row_elems +
+                                  size_t(kvh) * dh + d;
+        for (int j = 0; j < Sk; ++j) {
+          x0 += __bfloat162float(vr[size_t(j) * row_elems]);
+          x1 += __bfloat162float(vr[size_t(j) * row_elems + 1]);
+        }
+        x0 /= static_cast<float>(Sk);
+        x1 /= static_cast<float>(Sk);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(x0, x1);
+    }
+    if (lse != nullptr && c == 0)
+      lse[(size_t(b) * H + hh) * Sq + i] =
+          live ? (m[hr] + log2f(fmaxf(l[hr], 1e-30f))) * kLn2
+               : __int_as_float(0x7f800000);
+  }
+}
+
+// The backward's row pass for the wide templates: flash_bwd_prep_kernel
+// without the dQ accumulator (the dQ pass below writes dq itself).
+template <int NC>
+__global__ void flash_bwd_wide_prep_kernel(
+    const __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ ld, int B, int H, int Sq, int n_rb) {
+  constexpr int dh = NC * 64;
+  const int slot = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int rows = n_rb * 64;
+  if (slot >= B * H * rows) return;
+  const int bh = slot / rows, i = slot - bh * rows;
+  const int b = bh / H, h = bh - b * H;
+  float d = 0.0f, l2 = __int_as_float(0x7f800000);
+  if (i < Sq) {
+    const size_t row = (size_t(b) * Sq + i) * H + h;
+    const __nv_bfloat162* o =
+        reinterpret_cast<const __nv_bfloat162*>(out + row * dh);
+    const __nv_bfloat162* g =
+        reinterpret_cast<const __nv_bfloat162*>(dout + row * dh);
+#pragma unroll
+    for (int x = 0; x < NC; ++x) {
+      const float2 a = __bfloat1622float2(o[lane + 32 * x]);
+      const float2 c = __bfloat1622float2(g[lane + 32 * x]);
+      d += a.x * c.x + a.y * c.y;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    l2 = lse[size_t(bh) * Sq + i] * kLog2e;
+  }
+  if (lane == 0) {
+    float* blk = ld + (size_t(bh) * n_rb + i / 64) * 128;
+    blk[i % 64] = l2;
+    blk[64 + i % 64] = d;
+  }
+}
+
+// dK and dV. A block owns 64 keys of one (b, KV head) and walks the GS =
+// G / n_hs query heads of its head slice, each over the row steps of 64
+// its keys can see. Its two warpgroups split each step's work by product:
+// warpgroup 0 computes S^T = K Q^T, P^T = 2^(S^T scale log2(e) - lse2)
+// (masked to 0), hands P^T to warpgroup 1 through shared memory and sums
+// dV += P^T dout; warpgroup 1 computes dP^T = V dout^T, dS^T = P^T (dP^T
+// - D) and sums dK += dS^T Q. Each holds one 64 x dh float32 accumulator
+// (dh / 2 registers a thread). The block writes its float32 partial of
+// dK and dV for its head slice; the finish pass sums the slices in order.
+template <int NC>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ ld,
+                            float* __restrict__ part, int B, int H, int KV,
+                            int Sq, int Sk, float scale, int causal,
+                            int window, int n_hs) {
+  using namespace hopper;
+  using L = DkvWgSmem<NC>;
+  constexpr int dh = NC * 64, kTile = L::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+
+  // key blocks outermost: under a causal mask the first see the most rows
+  const int G = H / KV, GS = G / n_hs;
+  const int units = B * KV * n_hs;
+  const int kb = blockIdx.x / units;
+  int rem = blockIdx.x - kb * units;
+  const int hs = rem % n_hs;
+  rem /= n_hs;
+  const int kvh = rem % KV, b = rem / KV;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int w = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  const int k0 = kb * 64, n_rb = (Sq + 63) / 64;
+  const int k_last = min(Sk, k0 + 64) - 1;
+  const int i_lo = causal ? k0 : 0;
+  const int i_hi = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int n_q = i_hi > i_lo ? (i_hi - i_lo + 63) / 64 : 0;
+  const int n = GS * n_q;
+
+  unsigned char* s_k = smem;
+  unsigned char* s_v = smem + kTile;
+  float* xp = reinterpret_cast<float*>(smem + L::kX);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t *kv_full = bars, *full = bars + 1;
+  unsigned* readers = reinterpret_cast<unsigned*>(bars + 3);   // [2]
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i, 1);
+    readers[0] = readers[1] = 0;
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fetch = [&](int j) {                      // one thread: step j
+    uint64_t* bar = full + (j & 1);
+    unsigned char* st = smem + L::kRing + (j & 1) * L::kStage;
+    const int hh = kvh * G + hs * GS + j / n_q;
+    const int i0 = i_lo + (j % n_q) * 64;
+    mbar_expect_tx(bar, 2 * kTile + 512);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      tma_load_4d(st + cc * kWgTile, &tq, bar, cc * 64, hh, i0, b);
+      tma_load_4d(st + kTile + cc * kWgTile, &tdo, bar, cc * 64, hh, i0, b);
+    }
+    bulk_load(st + 2 * kTile,
+              ld + ((size_t(b) * H + hh) * n_rb + i0 / 64) * 128, 512, bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * kTile);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      tma_load_4d(s_k + cc * kWgTile, &tk, kv_full, cc * 64, kvh, k0, b);
+      tma_load_4d(s_v + cc * kWgTile, &tv, kv_full, cc * 64, kvh, k0, b);
+    }
+    for (int j = 0; j < 2 && j < n; ++j) fetch(j);
+  }
+
+  float acc[32 * NC];                  // warpgroup 0: dV; 1: dK
+#pragma unroll
+  for (int e = 0; e < 32 * NC; ++e) acc[e] = 0.0f;
+  const float cs = scale * kLog2e;
+  const int kl = 16 * w + g;           // this thread's keys: kl, kl + 8
+  // S^T = K Q^T (warpgroup 0), dP^T = V dout^T (1); then dV += P^T dout
+  // (0), dK += dS^T Q (1)
+  const unsigned char* a1 = wg ? s_v : s_k;
+  const int b1 = wg ? kTile : 0, b2 = wg ? 0 : kTile;
+  mbar_wait(kv_full, 0);
+
+  for (int j = 0; j < n; ++j) {
+    const int s = j & 1;
+    const uint32_t ph = (j >> 1) & 1;
+    const unsigned char* st = smem + L::kRing + s * L::kStage;
+    const float* s_ld = reinterpret_cast<const float*>(st + 2 * kTile);
+    const int i0 = i_lo + (j % n_q) * 64;
+    float sc[32];
+    mbar_wait(full + s, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(sc, desc128(a1 + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(st + b1 + cc * kWgTile + kk * 32, 0, 1024),
+                       cc | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // element 4 nb + r: key k0 + kl + 8 (r >> 1), row i0 + 8 nb + 2c + (r & 1)
+    if (wg == 0) {
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(s_ld + 8 * nb + 2 * c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + kl + 8 * (r >> 1);
+          const int i = i0 + 8 * nb + 2 * c + (r & 1);
+          const bool keep = i < Sq && key < Sk && (!causal || key <= i) &&
+                            (window <= 0 || key > i - window);
+          sc[4 * nb + r] =
+              keep ? exp2f(sc[4 * nb + r] * cs - (r & 1 ? l2.y : l2.x))
+                   : 0.0f;
+        }
+      }
+      if (j > 0) named_barrier(4, 256);          // 1 has read the last P^T
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xp[e * 128 + t] = sc[e];
+      named_arrive(3, 256);
+    } else {
+      named_barrier(3, 256);                     // P^T is written
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 dd =
+            *reinterpret_cast<const float2*>(s_ld + 64 + 8 * nb + 2 * c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sc[4 * nb + r] = xp[(4 * nb + r) * 128 + t] *
+                           (sc[4 * nb + r] - (r & 1 ? dd.y : dd.x));
+      }
+      if (j + 1 < n) named_arrive(4, 256);
+    }
+    // P^T or dS^T as A fragments, k16 step kk = rows 16 kk .. 16 kk + 15
+    uint32_t fa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_wide<NC>(acc, fa[kk],
+                        desc128(st + b2 + kk * 2048, kWgTile, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0 && last_reader(readers + s, 8) && j + 2 < n) fetch(j + 2);
+  }
+
+  // the partial: part[dK | dV][head slice][b][kvh][key][dh], float32
+  const int sk_pad = ((Sk + 63) / 64) * 64;
+  const size_t slab = size_t(n_hs) * B * KV * sk_pad * dh;
+  float* pk = part + (wg ? 0 : slab) +
+              (((size_t(hs) * B + b) * KV + kvh) * sk_pad + k0) * dh;
+#pragma unroll
+  for (int nb = 0; nb < 8 * NC; ++nb)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<float2*>(pk + size_t(kl + 8 * hr) * dh + 8 * nb +
+                                 2 * c) =
+          make_float2(acc[4 * nb + 2 * hr], acc[4 * nb + 2 * hr + 1]);
+}
+
+// dQ. A block owns 64 rows of HB query heads of one KV head (one
+// warpgroup a head), Q, dout and the rows' lse2 and D staged once, and
+// streams the rows' key range through the K and V rings. Per step: S = Q
+// K^T and dP = dout V^T, dS = P (dP - D) in registers (masked to 0),
+// rounded to bf16 as the A operand of dQ += dS K. One block sums every
+// key of a row, in key order, so dq is the same bit for bit on every
+// launch; dq = bf16(scale dQ).
+template <int NC>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ ld,
+                          __nv_bfloat16* __restrict__ dq, int B, int H,
+                          int KV, int Sq, int Sk, float scale, int causal,
+                          int window, int HB) {
+  using namespace hopper;
+  using L = DqWgSmem<NC>;
+  constexpr int dh = NC * 64, kTile = L::kTile, kVS = L::kVS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+
+  // heaviest first: under a causal mask the last row blocks see most keys
+  const int G = H / KV, n_hs = G / HB, units = B * KV * n_hs;
+  const int n_rb = (Sq + 63) / 64;
+  int rb = blockIdx.x / units;
+  int rem = blockIdx.x - rb * units;
+  if (causal) rb = n_rb - 1 - rb;
+  const int hs = rem % n_hs;
+  rem /= n_hs;
+  const int kvh = rem % KV, b = rem / KV;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int w = t >> 5, lane = t & 31, g = lane >> 2, c = lane & 3;
+  const int h = kvh * G + hs * HB + wg;
+  const int q0 = rb * 64;
+  const int q_last = min(Sq, q0 + 64) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int n = hi > lo ? (hi - lo + 63) / 64 : 0;
+
+  unsigned char* s_q = smem + wg * 2 * kTile;
+  unsigned char* s_do = s_q + kTile;
+  unsigned char* s_k = smem + L::kK;
+  unsigned char* s_v = smem + L::kV;
+  const float* s_ld = reinterpret_cast<const float*>(smem + L::kLd + wg * 512);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t *q_full = bars, *k_full = bars + 1, *v_full = bars + 3;
+  // warps done with each K and V slot: [K][2], then [V][kVS]
+  unsigned* readers = reinterpret_cast<unsigned*>(bars + 3 + kVS);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3 + kVS; ++i) mbar_init(bars + i, 1);
+    for (int i = 0; i < 2 + kVS; ++i) readers[i] = 0;
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto load_k = [&](int j) {                     // one thread: key tile j
+    mbar_expect_tx(k_full + (j & 1), kTile);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+      tma_load_4d(s_k + (j & 1) * kTile + cc * kWgTile, &tk, k_full + (j & 1),
+                  cc * 64, kvh, lo + 64 * j, b);
+  };
+  auto load_v = [&](int j) {
+    const int sv = j % kVS;
+    mbar_expect_tx(v_full + sv, kTile);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+      tma_load_4d(s_v + sv * kTile + cc * kWgTile, &tv, v_full + sv, cc * 64,
+                  kvh, lo + 64 * j, b);
+  };
+  if (threadIdx.x == 0) {
+    const int hq = kvh * G + hs * HB;
+    mbar_expect_tx(q_full, HB * (2 * kTile + 512));
+    for (int x = 0; x < HB; ++x) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        tma_load_4d(smem + 2 * x * kTile + cc * kWgTile, &tq, q_full, cc * 64,
+                    hq + x, q0, b);
+        tma_load_4d(smem + (2 * x + 1) * kTile + cc * kWgTile, &tdo, q_full,
+                    cc * 64, hq + x, q0, b);
+      }
+      bulk_load(smem + L::kLd + x * 512,
+                ld + ((size_t(b) * H + hq + x) * n_rb + rb) * 128, 512,
+                q_full);
+    }
+    for (int j = 0; j < 2 && j < n; ++j) load_k(j);
+    for (int j = 0; j < kVS && j < n; ++j) load_v(j);
+  }
+
+  float acc[32 * NC];
+#pragma unroll
+  for (int e = 0; e < 32 * NC; ++e) acc[e] = 0.0f;
+  const float cs = scale * kLog2e;
+  mbar_wait(q_full, 0);
+  float l2[2], dd[2];
+  int row[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int line = 16 * w + g + 8 * hr;
+    row[hr] = q0 + line;
+    l2[hr] = s_ld[line];
+    dd[hr] = s_ld[64 + line];
+  }
+
+  for (int j = 0; j < n; ++j) {
+    const int sk = j & 1, sv = j % kVS;
+    const uint32_t phk = (j >> 1) & 1, phv = (j / kVS) & 1;
+    const int kw = lo + 64 * j;
+    float sc[32], dp[32];
+    mbar_wait(k_full + sk, phk);
+    mbar_wait(v_full + sv, phv);
+    wgmma_fence();
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(sc, desc128(s_q + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(s_k + sk * kTile + cc * kWgTile + kk * 32, 0,
+                               1024),
+                       cc | kk);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 0>(dp, desc128(s_do + cc * kWgTile + kk * 32, 0, 1024),
+                       desc128(s_v + sv * kTile + cc * kWgTile + kk * 32, 0,
+                               1024),
+                       cc | kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    // the last warp done with V j refills its slot: dS and dQ of this
+    // step run while the next V arrives
+    if (lane == 0 && last_reader(readers + 2 + sv, 4 * HB) && j + kVS < n)
+      load_v(j + kVS);
+
+    // element 4 nb + r: row line 16 w + g + 8 (r >> 1), key kw + 8 nb + 2c
+    // + (r & 1)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = kw + 8 * nb + 2 * c + (r & 1), i = row[r >> 1];
+        const bool keep = i < Sq && key < Sk && (!causal || key <= i) &&
+                          (window <= 0 || key > i - window);
+        sc[4 * nb + r] = keep ? exp2f(sc[4 * nb + r] * cs - l2[r >> 1]) *
+                                    (dp[4 * nb + r] - dd[r >> 1])
+                              : 0.0f;
+      }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        da[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_wide<NC>(acc, da[kk],
+                        desc128(s_k + sk * kTile + kk * 2048, kWgTile, 1024),
+                        1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0 && last_reader(readers + sk, 4 * HB) && j + 2 < n)
+      load_k(j + 2);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (row[hr] >= Sq) continue;
+    __nv_bfloat16* o = dq + ((size_t(b) * Sq + row[hr]) * H + h) * dh;
+#pragma unroll
+    for (int nb = 0; nb < 8 * NC; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * nb + 2 * c) =
+          __floats2bfloat162_rn(acc[4 * nb + 2 * hr] * scale,
+                                acc[4 * nb + 2 * hr + 1] * scale);
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, found once at run time (the
 // library links only the runtime)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1627,10 +2411,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// (B, rows, heads, dh) bf16 as a 4-d map with boxes of 64 columns x 64
-// rows of one head, 128-byte swizzled; rows past the end read as zero
-bool row_map(CUtensorMap* m, const void* base, int B, int rows, int heads,
-             int dh) {
+// (B, rows, heads, dh) bf16 as a 4-d map with boxes of 64 columns x
+// box_rows rows of box_heads heads (box_rows x box_heads = 64 lines of
+// 128 bytes, line = row x box_heads + head), 128-byte swizzled; rows past
+// the end read as zero
+bool row_map_box(CUtensorMap* m, const void* base, int B, int rows,
+                 int heads, int dh, int box_heads, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(heads),
@@ -1638,7 +2424,8 @@ bool row_map(CUtensorMap* m, const void* base, int B, int rows, int heads,
   const cuuint64_t strides[3] = {cuuint64_t(dh) * 2,
                                  cuuint64_t(heads) * dh * 2,
                                  cuuint64_t(rows) * heads * dh * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_heads),
+                             cuuint32_t(box_rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1646,19 +2433,39 @@ bool row_map(CUtensorMap* m, const void* base, int B, int rows, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The wgmma branch takes bf16 at dh 64 or 128 with 16-byte aligned
-// operands (TMA's rule) and fewer than 2^31 elements of q (its rows
-// padded to 64) and of k (its passes index with 32 bits); everything
-// else takes the mma.sync kernels.
-bool wgmma_branch(std::initializer_list<const void*> ptrs, int B, int H,
-                  int KV, int Sq, int Sk, int dh, int bf16) {
-  if (!bf16 || (dh != 64 && dh != 128)) return false;
+// boxes of 64 columns x 64 rows of one head
+bool row_map(CUtensorMap* m, const void* base, int B, int rows, int heads,
+             int dh) {
+  return row_map_box(m, base, B, rows, heads, dh, 1, 64);
+}
+
+// The wgmma branches take 16-byte aligned operands (TMA's rule) and
+// fewer than 2^31 elements of q (its rows padded to 64) and of k (their
+// passes index with 32 bits)
+bool wgmma_operands(std::initializer_list<const void*> ptrs, int B, int H,
+                    int KV, int Sq, int Sk, int dh) {
   if ((long long)B * H * ((Sq + 63) / 64 * 64) * dh >= (1ll << 31) ||
       (long long)B * KV * Sk * dh >= (1ll << 31))
     return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) & 15) return false;
   return true;
+}
+
+// The backward's wgmma branch for dh 64 or 128 in bf16.
+bool wgmma_branch(std::initializer_list<const void*> ptrs, int B, int H,
+                  int KV, int Sq, int Sk, int dh, int bf16) {
+  return bf16 && (dh == 64 || dh == 128) &&
+         wgmma_operands(ptrs, B, H, KV, Sq, Sk, dh);
+}
+
+// The wide templates' wgmma branch, forward and backward: bf16 at dh 192
+// or 256. Everything else (float32, other dh, misaligned operands) takes
+// the mma.sync kernels.
+bool wide_wgmma_branch(std::initializer_list<const void*> ptrs, int B,
+                       int H, int KV, int Sq, int Sk, int dh, int bf16) {
+  return bf16 && (dh == 192 || dh == 256) &&
+         wgmma_operands(ptrs, B, H, KV, Sq, Sk, dh);
 }
 
 // workspace layout of the wgmma branch, in floats, each part 64-aligned
@@ -1730,6 +2537,138 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
       dq_acc, static_cast<bf*>(dq), part, static_cast<bf*>(dk),
       static_cast<bf*>(dv), static_cast<const bf*>(dout), B, H, KV, Sq, Sk,
       G / HB, scale, window, n_dq);
+  return cudaGetLastError();
+}
+
+// Heads a tile of the wide forward packs (HP) and warpgroups a block
+// (HB): a short Sq packs HP = 8, 4 or 2 heads of a group (HP dividing
+// G), 64 / HP rows each, into one tile of 64 lines, so that a block
+// reads its K and V tiles for HB x HP heads at once; HB = 2 where the
+// group's tiles pair up.
+void fwd_packing(int Sq, int G, int* HP, int* HB) {
+  *HP = 1;
+  for (int p = 8; p > 1; p /= 2)
+    if (Sq <= 64 / p && G % p == 0) {
+      *HP = p;
+      break;
+    }
+  *HB = (G / *HP) % 2 == 0 ? 2 : 1;
+}
+
+// Head slices of the wide dK / dV pass: the fewest (a divisor of G) that
+// give kWideTarget blocks, each slice one float32 partial of dK and dV.
+int wide_slices(int B, int KV, int Sk, int G) {
+  const long long base = (long long)((Sk + 63) / 64) * B * KV;
+  for (int d = 1; d < G; ++d)
+    if (G % d == 0 && base * d >= kWideTarget) return d;
+  return G;
+}
+
+// workspace layout of the wide wgmma backward, in floats, 64-aligned:
+// the staged lse2 and D, then the head slices' dK and dV partials
+struct WideWork {
+  size_t ld, part, total;
+  int n_hs;
+  WideWork(int B, int H, int KV, int Sq, int Sk, int dh) {
+    auto up = [](size_t x) { return (x + 63) & ~size_t(63); };
+    n_hs = wide_slices(B, KV, Sk, H / KV);
+    const size_t n_rb = (Sq + 63) / 64, sk_pad = ((Sk + 63) / 64) * 64;
+    ld = 0;
+    part = up(size_t(B) * H * n_rb * 128);
+    total = part + up(2 * size_t(n_hs) * B * KV * sk_pad * dh);
+  }
+};
+
+template <int NC>
+cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int B, int H, int KV,
+                             int Sq, int Sk, float scale, int causal,
+                             int window, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int dh = NC * 64;
+  constexpr int smem = FwdWgSmem<NC>::kBytes;
+  static bool ready = false;            // the opt-in above 48 KB, once
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  int HP, HB;
+  fwd_packing(Sq, H / KV, &HP, &HB);
+  const int R = 64 / HP;
+  CUtensorMap tq, tk, tv;
+  if (!row_map_box(&tq, q, B, Sq, H, dh, HP, R) ||
+      !row_map(&tk, k, B, Sk, KV, dh) || !row_map(&tv, v, B, Sk, KV, dh))
+    return cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)((Sq + R - 1) / R) * B * KV * (H / KV / (HB * HP));
+  flash_fwd_wgmma_kernel<NC><<<static_cast<unsigned>(blocks), 128 * HB,
+                               smem, stream>>>(
+      tq, tk, tv, static_cast<const bf*>(v), static_cast<bf*>(out), lse, B,
+      H, KV, Sq, Sk, scale, causal, window, HB, HP);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_bwd_wide_wgmma(const void* q, const void* k,
+                                  const void* v, const void* out,
+                                  const void* dout, const float* lse,
+                                  float* work, void* dq, void* dk, void* dv,
+                                  int B, int H, int KV, int Sq, int Sk,
+                                  float scale, int causal, int window,
+                                  cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  constexpr int dh = NC * 64;
+  constexpr int smem_kv = DkvWgSmem<NC>::kBytes;
+  constexpr int smem_q = DqWgSmem<NC>::kBytes;
+  static bool ready = false;            // the opt-in above 48 KB, once
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_wgmma_dkdv_kernel<NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_wgmma_dq_kernel<NC>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_q);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!row_map(&tq, q, B, Sq, H, dh) || !row_map(&tk, k, B, Sk, KV, dh) ||
+      !row_map(&tv, v, B, Sk, KV, dh) || !row_map(&tdo, dout, B, Sq, H, dh))
+    return cudaErrorInvalidValue;
+  const WideWork ws(B, H, KV, Sq, Sk, dh);
+  float* ld = work + ws.ld;
+  float* part = work + ws.part;
+  const int n_rb = (Sq + 63) / 64;
+  const int slots = B * H * n_rb * 64;
+  flash_bwd_wide_prep_kernel<NC><<<(slots + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf*>(out), static_cast<const bf*>(dout), lse, ld, B,
+      H, Sq, n_rb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int G = H / KV, HB = G % 2 == 0 ? 2 : 1;
+  const long long kv_blocks = (long long)((Sk + 63) / 64) * B * KV * ws.n_hs;
+  flash_bwd_wgmma_dkdv_kernel<NC><<<static_cast<unsigned>(kv_blocks), 256,
+                                    smem_kv, stream>>>(
+      tq, tk, tv, tdo, ld, part, B, H, KV, Sq, Sk, scale, causal, window,
+      ws.n_hs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long q_blocks = (long long)n_rb * B * KV * (G / HB);
+  flash_bwd_wgmma_dq_kernel<NC><<<static_cast<unsigned>(q_blocks), 128 * HB,
+                                  smem_q, stream>>>(
+      tq, tk, tv, tdo, ld, static_cast<bf*>(dq), B, H, KV, Sq, Sk, scale,
+      causal, window, HB);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_kv = (B * Sk * KV * dh / 4 + 255) / 256;
+  flash_bwd_finish_kernel<NC><<<n_kv, 256, 0, stream>>>(
+      nullptr, nullptr, part, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      static_cast<const bf*>(dout), B, H, KV, Sq, Sk, ws.n_hs, scale, window,
+      0);
   return cudaGetLastError();
 }
 
@@ -1834,6 +2773,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const int cw_shift = dh > 128 ? copy_shift({q, k, v}, dh, bf16 ? 2 : 4)
                                 : copy_shift({k, v}, dh, bf16 ? 2 : 4);
   float* l = static_cast<float*>(lse);
+  if (wide_wgmma_branch({q, k, v}, B, H, KV, Sq, Sk, dh, bf16))
+    return repro_flash_wide::forward_wgmma(q, k, v, out, l, B, H, KV, Sq, Sk,
+                                           dh, scale, causal, window, s);
   if (dh > 128 && dh <= 256)
     return repro_flash_wide::forward(q, k, v, out, l, B, H, KV, Sq, Sk, dh,
                                      scale, causal, window, cw_shift, bf16,
@@ -1843,6 +2785,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                    scale, causal, window, cw_shift, s);
   return dispatch<float>(q, k, v, out, l, B, H, KV, Sq, Sk, dh, scale, causal,
                          window, cw_shift, s);
+}
+
+// The forward's branch for these operands: 1, the wgmma kernel (bf16 at
+// dh 192 or 256, q, k and v 16-byte aligned); 0, the mma.sync kernels.
+int flash_attention_forward_branch(const void* q, const void* k,
+                                   const void* v, int B, int H, int KV,
+                                   int Sq, int Sk, int dh, int bf16) {
+  return wide_wgmma_branch({q, k, v}, B, H, KV, Sq, Sk, dh, bf16) ? 1 : 0;
 }
 
 // The backward's workspace in bytes, and its branch (1: wgmma, 0: the
@@ -1855,8 +2805,12 @@ long long flash_attention_backward_workspace(const void* q, const void* k,
   if (KV <= 0 || H % KV || Sk <= 0) return -1;
   const bool wg =
       wgmma_branch({q, k, v, out, dout}, B, H, KV, Sq, Sk, dh, bf16);
-  *branch = wg ? 1 : 0;
+  const bool wide =
+      wide_wgmma_branch({q, k, v, out, dout}, B, H, KV, Sq, Sk, dh, bf16);
+  *branch = wg || wide ? 1 : 0;
   if (wg) return static_cast<long long>(WgWork(B, H, KV, Sq, Sk, dh).total) * 4;
+  if (wide)
+    return static_cast<long long>(WideWork(B, H, KV, Sq, Sk, dh).total) * 4;
   return (long long)B * H * Sq * 4;              // D
 }
 
@@ -1883,6 +2837,10 @@ int flash_attention_backward_launch(const void* q, const void* k,
     return launch_bwd_wgmma<2>(q, k, v, out, dout, l, w, dq, dk, dv, B, H,
                                KV, Sq, Sk, scale, causal, window, s);
   }
+  if (wide_wgmma_branch({q, k, v, out, dout}, B, H, KV, Sq, Sk, dh, bf16))
+    return repro_flash_wide::backward_wgmma(q, k, v, out, dout, l, w, dq, dk,
+                                            dv, B, H, KV, Sq, Sk, dh, scale,
+                                            causal, window, s);
   const int cw_shift = copy_shift({q, k, v, dout}, dh, bf16 ? 2 : 4);
   if (dh > 128 && dh <= 256)
     return repro_flash_wide::backward(q, k, v, out, dout, l, w, dq, dk, dv, B,
@@ -1926,6 +2884,25 @@ cudaError_t repro_flash_wide::backward(const void* q, const void* k,
                      : launch_bwd<__nv_bfloat16, 256>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
   return dh <= 192 ? launch_bwd<float, 192>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s)
                    : launch_bwd<float, 256>(q, k, v, out, dout, lse, D, dq, dk, dv, B, H, KV, Sq, Sk, dh, scale, causal, window, cw_shift, s);
+}
+
+cudaError_t repro_flash_wide::forward_wgmma(const void* q, const void* k,
+                                            const void* v, void* out,
+                                            float* lse, int B, int H, int KV,
+                                            int Sq, int Sk, int dh,
+                                            float scale, int causal,
+                                            int window, cudaStream_t s) {
+  return dh == 192 ? launch_fwd_wgmma<3>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, s)
+                   : launch_fwd_wgmma<4>(q, k, v, out, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+}
+
+cudaError_t repro_flash_wide::backward_wgmma(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* work, void* dq, void* dk,
+    void* dv, int B, int H, int KV, int Sq, int Sk, int dh, float scale,
+    int causal, int window, cudaStream_t s) {
+  return dh == 192 ? launch_bwd_wide_wgmma<3>(q, k, v, out, dout, lse, work, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s)
+                   : launch_bwd_wide_wgmma<4>(q, k, v, out, dout, lse, work, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
 }
 
 #endif  // REPRO_FLASH_WIDE_UNIT

@@ -44,6 +44,7 @@ SIGNATURES = {
     "flash_attention_backward_launch": [_P] * 10 + [_I] * 6 + [_F]
     + [_I] * 3 + [_P],
     "flash_attention_backward_workspace": [_P] * 5 + [_I] * 7 + [_P],
+    "flash_attention_forward_branch": [_P] * 3 + [_I] * 7,
 }
 # entry points that return something other than a cudaError_t
 RESTYPES = {"flash_attention_backward_workspace": ctypes.c_longlong}

@@ -14,15 +14,18 @@ tensors.
                              ``FlashAttention``, a ``torch.autograd``
                              Function whose backward is the backward
                              kernel. Counts forward launches in
-                             ``.launches``.
+                             ``.launches`` and each branch's in
+                             ``.branches`` ("wgmma": bf16 at dh 192 or
+                             256 with q, k, v 16-byte aligned; "mma": the
+                             rest).
   flash_attention_forward  — the forward returning (out, lse), the
                              per-row log-sum-exp the backward reads.
   flash_attention_backward — dq, dk, dv from q, k, v, out, dout and lse;
                              counts its launches in ``.launches`` and
                              each branch's in ``.branches`` ("wgmma":
-                             bf16 at dh 64 or 128 with 16-byte aligned
-                             operands; "mma": the rest, dh 129..256
-                             included).
+                             bf16 at dh 64, 128, 192 or 256 with 16-byte
+                             aligned operands; "mma": the rest: float32,
+                             other dh, misaligned operands).
 
 dh runs from 1 to 256 (``MAX_DH``); a wider head raises ``ValueError``
 on either device.
@@ -45,7 +48,9 @@ from .ref import attention_backward_ref, attention_lse_ref, attention_ref
 MAX_DH = 256                 # templates 16, 32, 64, 128, 192 and 256
 ROWS_PER_BLOCK = 16          # query rows per thread block of the forward
 BWD_ROWS_PER_BLOCK = 64      # keys (dK, dV) or rows (dQ) a backward block
-BWD_BRANCHES = ("mma", "wgmma")
+WIDE_DH = (192, 256)         # the wide wgmma kernels' widths (bf16)
+WIDE_BLOCKS = 264            # dK / dV blocks the wide backward aims for
+BRANCHES = ("mma", "wgmma")     # the C entry points' branch codes 0, 1
 MAX_GRID = (1 << 31) - 1
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -82,16 +87,22 @@ def _launch_forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    if -(-sq // ROWS_PER_BLOCK) * b * h > MAX_GRID:
+    if max(_forward_grid(b, sq, h, k.shape[2], dh)) > MAX_GRID:
         raise ValueError(f"{b * h} (batch, head) pairs of {sq} rows exceed "
                          "the grid")
-    err = build.library().flash_attention_launch(
+    lib = build.library()
+    bf16 = int(q.dtype == torch.bfloat16)
+    branch = lib.flash_attention_forward_branch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), b, h, k.shape[2], sq,
+        k.shape[1], dh, bf16)
+    err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, h, k.shape[2], sq,
         k.shape[1], dh, 1.0 / math.sqrt(dh), int(causal), int(window),
-        int(q.dtype == torch.bfloat16), stream_of(dev))
+        bf16, stream_of(dev))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.branches[BRANCHES[branch]] += 1
     return out, lse
 
 
@@ -133,6 +144,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.branches = collections.Counter()
 
 
 def flash_attention_forward(q: Tensor, k: Tensor, v: Tensor,
@@ -199,8 +211,36 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
         int(q.dtype == torch.bfloat16), stream_of(dev))
     build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1
-    flash_attention_backward.branches[BWD_BRANCHES[branch.value]] += 1
+    flash_attention_backward.branches[BRANCHES[branch.value]] += 1
     return dq, dk, dv
+
+
+def _forward_packing(sq: int, g: int) -> Tuple[int, int]:
+    """The wide wgmma forward's heads packed in a tile of 64 lines (HP:
+    8, 4 or 2 heads of a group of ``g``, 64 / HP rows each, for short
+    Sq) and warpgroups a block (HB: 2 where the tiles pair up), as the
+    kernel's launcher (``fwd_packing``) picks them."""
+    hp = next((p for p in (8, 4, 2) if sq <= 64 // p and g % p == 0), 1)
+    return hp, 2 if (g // hp) % 2 == 0 else 1
+
+
+def _forward_grid(b: int, sq: int, h: int, kv: int, dh: int):
+    """Blocks of each forward launch, of both branches: the mma.sync
+    kernel's (16 rows of at most two heads; counted as one head a block,
+    an upper bound) and, at dh 192 / 256, the wgmma kernel's (64 / HP
+    rows of HB x HP heads a block; 0 at other widths)."""
+    hp, hb = _forward_packing(sq, h // kv)
+    rows = 64 // hp
+    return (-(-sq // ROWS_PER_BLOCK) * b * h,
+            -(-sq // rows) * b * (h // (hb * hp)) if dh in WIDE_DH else 0)
+
+
+def _wide_slices(b: int, sk: int, kv: int, g: int) -> int:
+    """Head slices of the wide dK / dV pass: the fewest (a divisor of
+    ``g``) that give WIDE_BLOCKS blocks, as ``wide_slices`` picks them."""
+    base = -(-sk // 64) * b * kv
+    return next((d for d in range(1, g) if g % d == 0
+                 and base * d >= WIDE_BLOCKS), g)
 
 
 def _backward_grid(b: int, sq: int, sk: int, h: int, kv: int, dh: int):
@@ -208,13 +248,21 @@ def _backward_grid(b: int, sq: int, sk: int, h: int, kv: int, dh: int):
     kernel's (64-key block, b, KV head, head slice) items (at most one
     a query head), its row pass (8 rows a block) and last pass (1,024
     elements a block); the mma.sync kernels' key blocks (two a key block
-    above dh 128, one for dK and one for dV) and row blocks."""
+    above dh 128, one for dK and one for dV) and row blocks; at dh 192 /
+    256 the wide wgmma branch's dK / dV blocks (64 keys of a head slice)
+    and dQ blocks (64 rows of one or two heads)."""
     rows_padded = -(-sq // 64) * 64
+    g = h // kv
+    wide = dh in WIDE_DH
     return (-(-sk // 64) * b * h, -(-b * h * rows_padded // 8),
             -(-(b * sq * h + b * sk * kv) * dh // 1024),
             -(-sq // BWD_ROWS_PER_BLOCK) * b * h,
             -(-sk // BWD_ROWS_PER_BLOCK) * b * kv * (2 if dh > 128 else 1),
-            -(-b * sq * h // 8))
+            -(-b * sq * h // 8),
+            -(-sk // 64) * b * kv * _wide_slices(b, sk, kv, g)
+            if wide else 0,
+            -(-sq // 64) * b * (h // (2 if g % 2 == 0 else 1))
+            if wide else 0)
 
 
 flash_attention_backward.launches = 0

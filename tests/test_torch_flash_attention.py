@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import (attention_lse_ref,
                                                  flash_attention_backward,
                                                  flash_attention_forward,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 
 
 def _qkv(b, sq, sk, h, kv, dh, seed=0):
@@ -329,3 +330,57 @@ def test_backward_wrapper_rejects_bad_operands():
         flash_attention_backward(q, q, q, q, q.bfloat16(), lse)  # dout type
     with pytest.raises(ValueError):
         flash_attention_backward(q, q, q, q, q, lse.double())
+
+
+# the launch grids the wrapper checks against the card's limit, at the
+# shapes the card launches: nemotron-4-340b's train_4k attention (B 1,
+# S 4,096, H 96, KV 8, dh 192) and served prefill (S 32), glm4-9b's
+# training shape (dh 128: no wide blocks) and the card tests' wide shapes
+
+@pytest.mark.parametrize("sq,g,want", [
+    (4096, 12, (1, 2)),      # train_4k: 64 rows of a head, heads in pairs
+    (32, 12, (2, 2)),        # served prefill: 2 heads x 32 rows a tile
+    (16, 12, (4, 1)),        # 4 heads x 16 rows, three tiles a group
+    (8, 12, (4, 1)),         # 8 does not divide 12
+    (5, 8, (8, 1)),          # 8 heads x 8 rows: the group in one tile
+    (33, 12, (1, 2)),        # past 32 rows: no packing
+    (32, 3, (1, 1)),         # an odd group: one head, one warpgroup
+])
+def test_forward_packing(sq, g, want):
+    assert flash_ops._forward_packing(sq, g) == want
+
+
+@pytest.mark.parametrize("b,sq,h,kv,dh,want", [
+    (1, 4096, 96, 8, 192, (256 * 96, 64 * 48)),   # train_4k
+    (1, 32, 96, 8, 192, (2 * 96, 24)),            # served prefill
+    (1, 4096, 48, 4, 256, (256 * 48, 64 * 24)),
+    (4, 1024, 32, 2, 128, (64 * 128, 0)),         # glm4-9b: no wgmma
+    (1, 65, 3, 1, 192, (5 * 3, 2 * 3)),           # odd group
+    (1, 5, 8, 1, 256, (8, 1)),                    # the group in a tile
+])
+def test_forward_grid(b, sq, h, kv, dh, want):
+    assert flash_ops._forward_grid(b, sq, h, kv, dh) == want
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,slices,wide", [
+    # train_4k: 64 key blocks x 8 KV heads already fill the card, so one
+    # slice (the group's 12 heads walked by each block); dQ: 64 row
+    # blocks x 48 head pairs
+    (1, 4096, 4096, 96, 8, 192, 1, (512, 3072)),
+    (1, 4096, 4096, 48, 4, 256, 2, (512, 1536)),
+    (1, 256, 256, 12, 1, 192, 12, (48, 24)),      # a slice a head
+    (1, 100, 100, 4, 2, 256, 2, (8, 4)),
+    (1, 65, 200, 3, 1, 192, 3, (12, 6)),          # odd group: HB 1
+    (4, 1024, 1024, 32, 2, 128, 4, (0, 0)),       # dh 128: no wide pass
+])
+def test_backward_grid(b, sq, sk, h, kv, dh, slices, wide):
+    assert flash_ops._wide_slices(b, sk, kv, h // kv) == slices
+    grid = flash_ops._backward_grid(b, sq, sk, h, kv, dh)
+    assert grid[-2:] == wide
+    # the wgmma branch of dh 64 / 128 and the mma.sync kernels as before
+    assert grid[:6] == (-(-sk // 64) * b * h, -(-b * h * -(-sq // 64) * 64
+                                               // 8),
+                        -(-(b * sq * h + b * sk * kv) * dh // 1024),
+                        -(-sq // 64) * b * h,
+                        -(-sk // 64) * b * kv * (2 if dh > 128 else 1),
+                        -(-b * sq * h // 8))

@@ -842,6 +842,12 @@ FLASH_SHAPES = [
     (1, 130, 130, 4, 2, 200, True, 0),    # dh 200 -> 256
     (1, 300, 130, 1, 1, 256, True, 4),    # fully masked rows
     (1, 65, 200, 2, 1, 193, True, 9),     # odd dh: 2-byte bf16 copies
+    # the wide wgmma forward (bf16 at dh 192 / 256; float32 stays on the
+    # mma.sync kernel)
+    (1, 32, 32, 96, 8, 192, True, 0),     # nemotron's served prefill
+    (1, 65, 200, 3, 1, 192, True, 0),     # odd group: one head a block
+    (1, 5, 5, 8, 1, 256, True, 0),        # 8 heads packed in a tile
+    (1, 77, 100, 4, 2, 256, True, 0),     # Sq < Sk, causal
 ]
 
 
@@ -864,9 +870,13 @@ def test_flash_kernel_matches_plain(cuda_device, b, sq, sk, h, kv, dh,
                .to(cuda_device, dtype) for s in (
                    (b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)))
     launches = flash_attention.launches
+    branches = dict(flash_attention.branches)
     got = flash_attention(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
     assert flash_attention.launches == launches + 1
+    branch = "wgmma" if dtype == torch.bfloat16 and dh in (192, 256) \
+        else "mma"
+    assert flash_attention.branches[branch] == branches.get(branch, 0) + 1
     assert got.dtype == dtype and got.shape == q.shape
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -923,6 +933,12 @@ FLASH_BWD_SHAPES = [
     (1, 300, 130, 2, 1, 192, True, 4, torch.bfloat16),     # fully masked
     (1, 300, 130, 2, 1, 256, False, 4, torch.float32),
     (1, 65, 200, 3, 1, 193, True, 9, torch.bfloat16),      # odd dh
+    # the wide wgmma backward (bf16 at dh 192 / 256)
+    (1, 65, 200, 3, 1, 192, True, 9, torch.bfloat16),      # odd group
+    (1, 70, 90, 2, 1, 256, False, 40, torch.bfloat16),     # window only
+    (1, 300, 130, 2, 1, 256, False, 4, torch.bfloat16),    # fully masked
+    (1, 160, 200, 4, 2, 192, False, 0, torch.bfloat16),    # Sq < Sk
+    (1, 32, 32, 96, 8, 192, True, 0, torch.bfloat16),      # Sq 32
 ]
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -976,7 +992,8 @@ def test_flash_backward_kernel_matches_plain(cuda_device, b, sq, sk, h, kv,
 
 def _backward_branch(dtype, dh) -> str:
     """The backward kernel's branch for these (aligned) operands."""
-    return "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) else "mma"
+    return ("wgmma" if dtype == torch.bfloat16 and dh in (64, 128, 192, 256)
+            else "mma")
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal,win", [
@@ -1011,19 +1028,22 @@ def test_flash_backward_dk_dv_are_deterministic(cuda_device, b, sq, sk, h,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [192, 256])
 def test_flash_wide_backward_is_deterministic(cuda_device, dh, dtype):
-    """Two launches of the mma.sync backward at dh 192 / 256 (dK and dV
-    from separate blocks) give dq, dk and dv bit for bit."""
+    """Two launches of the backward at dh 192 / 256 (float32: the mma.sync
+    kernels, dK and dV from separate blocks; bf16: the wgmma branch, dQ in
+    a pass of its own, the head slices' dK and dV summed in order) give
+    dq, dk and dv bit for bit."""
     rng = np.random.default_rng(dh)
     q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                      .to(cuda_device, dtype) for s in (
                          (1, 200, 12, dh), (1, 200, 1, dh), (1, 200, 1, dh),
                          (1, 200, 12, dh)))
     out, lse = flash_attention_forward(q, k, v, causal=True)
-    mma = flash_attention_backward.branches["mma"]
+    branch = _backward_branch(dtype, dh)
+    taken = flash_attention_backward.branches[branch]
     first = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
     second = flash_attention_backward(q, k, v, out, dout, lse, causal=True)
     torch.cuda.synchronize()
-    assert flash_attention_backward.branches["mma"] == mma + 2
+    assert flash_attention_backward.branches[branch] == taken + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -1035,15 +1055,19 @@ def test_flash_wide_kernels_take_misaligned_operands(cuda_device, dh, dtype,
                                                      tol):
     """q, k, v and dout one element past 16-byte alignment at the wide
     templates (Q's rows copied to shared memory with the K / V rows, 2-
-    or 4-byte copies): forward and backward match their plain versions
-    as the aligned operands do."""
+    or 4-byte copies): forward and backward take the mma.sync kernels in
+    either type (TMA needs 16-byte aligned rows) and match their plain
+    versions as the aligned operands do."""
     rng = np.random.default_rng(dh + 1)
     q, k, v, dout = (misaligned(torch.from_numpy(
         rng.normal(size=s).astype(np.float32)).to(cuda_device, dtype))
         for s in ((1, 90, 4, dh), (1, 90, 2, dh), (1, 90, 2, dh),
                   (1, 90, 4, dh)))
+    fwd = flash_attention.branches["mma"]
+    bwd = flash_attention_backward.branches["mma"]
     out, lse = flash_attention_forward(q, k, v, causal=True, window=30)
     torch.cuda.synchronize()
+    assert flash_attention.branches["mma"] == fwd + 1
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1054,6 +1078,7 @@ def test_flash_wide_kernels_take_misaligned_operands(cuda_device, dh, dtype,
     got = flash_attention_backward(q, k, v, out, dout, lse, causal=True,
                                    window=30)
     torch.cuda.synchronize()
+    assert flash_attention_backward.branches["mma"] == bwd + 1
     _grads_close(got, _plain_grads(q, k, v, dout, True, 30), dtype)
 
 
