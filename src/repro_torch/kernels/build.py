@@ -9,6 +9,10 @@ loaded with ``ctypes``. The library lands in
 sources and flags, so an edit to a kernel rebuilds and an unchanged
 checkout reuses what it built before. Each C entry point returns a
 ``cudaError_t``; ``check`` turns a non-zero one into an exception.
+Every wrapper calls its kernel's entry point through ``launch``, which
+checks the error and, while a ``torch.profiler`` session records, runs
+the call inside a profiler op of its own: a ``ctypes`` call has no host
+op, and without one the profile ties the kernel to none.
 
 Wrappers call ``library()`` only when they are handed a CUDA tensor:
 importing this module compiles nothing.
@@ -153,3 +157,31 @@ def check(err: int, kernel: str) -> None:
     if err:
         msg = library().repro_cuda_error_string(err).decode()
         raise KernelLaunchError(f"{kernel}: CUDA error {err} ({msg})")
+
+
+OP_PREFIX = "repro_torch::"      # a launch's profiler op: OP_PREFIX + kernel
+
+
+def _profiler_op():
+    """torch's operator-scoped profiler op (a private class; ``None``
+    where this torch lacks it, and launches then open no op)."""
+    import torch
+    return getattr(getattr(torch._C, "_profiler", None),
+                   "_RecordFunctionFast", None)
+
+
+def launch(kernel: str, *args) -> None:
+    """Call the entry point ``<kernel>_launch`` with ``args`` and check
+    its error. While a ``torch.profiler`` session records, the call runs
+    inside the profiler op ``repro_torch::<kernel>``, so the kernels it
+    launches are linked to that op in the profile."""
+    fn = getattr(library(), kernel + "_launch")
+    from torch.autograd import profiler
+    op = _profiler_op() if profiler._is_profiler_enabled else None
+    if op is None:
+        err = fn(*args)
+    else:
+        with op(OP_PREFIX + kernel):
+            err = fn(*args)
+    check(err, kernel)
+

@@ -117,12 +117,11 @@ def launch_plan(x, idx, w, bias, out, plan: FaninPlan) -> torch.Tensor:
         if t.dtype not in (x.dtype, torch.float32):
             raise ValueError(f"{name}: the kernel takes x's type or "
                              f"float32, got {t.dtype}")
-    err = build.library().fanin_matmul_launch(
+    build.launch("fanin_matmul",
         x.data_ptr(), idx.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n_in, n, k, DTYPE_CODES[x.dtype],
         int(w.dtype != x.dtype), int(bias.dtype != x.dtype), plan.rows,
         int(plan.staged), plan.span, plan.smem_bytes, stream_of(x.device))
-    build.check(err, "fanin_matmul")
     fanin_matmul.launches += 1
     return out
 

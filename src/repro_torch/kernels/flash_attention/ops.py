@@ -95,12 +95,11 @@ def _launch_forward(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     branch = lib.flash_attention_forward_branch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), b, h, k.shape[2], sq,
         k.shape[1], dh, bf16)
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, k.shape[2], sq,
-        k.shape[1], dh, 1.0 / math.sqrt(dh), int(causal), int(window),
-        bf16, stream_of(dev))
-    build.check(err, "flash_attention")
+    build.launch(
+        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h,
+        k.shape[2], sq, k.shape[1], dh, 1.0 / math.sqrt(dh), int(causal),
+        int(window), bf16, stream_of(dev))
     flash_attention.launches += 1
     flash_attention.branches[BRANCHES[branch]] += 1
     return out, lse
@@ -203,13 +202,12 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} exceed "
                          "the grid")
     work = torch.empty(work_bytes, dtype=torch.uint8, device=dev)
-    err = lib.flash_attention_backward_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, kv, sq, sk, dh,
+    build.launch(
+        "flash_attention_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), work.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kv, sq, sk, dh,
         1.0 / math.sqrt(dh), int(causal), int(window),
         int(q.dtype == torch.bfloat16), stream_of(dev))
-    build.check(err, "flash_attention_backward")
     flash_attention_backward.launches += 1
     flash_attention_backward.branches[BRANCHES[branch.value]] += 1
     return dq, dk, dv

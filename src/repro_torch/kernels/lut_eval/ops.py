@@ -207,11 +207,10 @@ def lut_eval(pi_words: torch.Tensor, leaf_idx: torch.Tensor,
     kk = k if n_levels else 1
     bw, use_smem, chunk = plan_stacked(n_wires + 1, w, n_levels, lw, kk,
                                        spec or DEFAULT_SPEC)
-    err = build.library().lut_eval_launch(
+    build.launch("lut_eval",
         pi_words.data_ptr(), leaf_idx.data_ptr(), tt_bits.data_ptr(),
         out_wires.data_ptr(), out.data_ptr(), n_pis, n_wires + 1, n_levels,
         lw, kk, w, bw, int(use_smem), chunk, stream_of(dev))
-    build.check(err, "lut_eval")
     lut_eval.launches += 1
     lut_eval.last_plan = (bw, use_smem, chunk)
     return out
@@ -264,12 +263,11 @@ def lut_eval_streamed(pi_words: torch.Tensor, tt_tiles: torch.Tensor,
     kk = k if n_tiles else 1
     bw, use_smem, chunk = plan_streamed(n_rows, w, n_levels, n_tiles, T, kk,
                                         spec or DEFAULT_SPEC)
-    err = build.library().lut_eval_streamed_launch(
+    build.launch("lut_eval_streamed",
         pi_words.data_ptr(), tt_tiles.data_ptr(), leaf_tiles.data_ptr(),
         out_base.data_ptr(), level_start.data_ptr(), out.data_ptr(), n_pis,
         n_rows, n_levels, n_tiles, T, kk, w, bw, int(use_smem), chunk,
         stream_of(dev))
-    build.check(err, "lut_eval_streamed")
     lut_eval_streamed.launches += 1
     lut_eval_streamed.last_plan = (bw, use_smem, chunk)
     return out

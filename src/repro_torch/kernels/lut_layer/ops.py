@@ -86,11 +86,10 @@ def lut_layer(codes: torch.Tensor, idx: torch.Tensor, tables: torch.Tensor,
         return out
     r = tables.shape[1]
     n_tile, b_tile, in_smem = plan_layer(b, n_in, n, k, r)
-    err = build.library().lut_layer_launch(
+    build.launch("lut_layer",
         codes.data_ptr(), idx.data_ptr(), tables.data_ptr(), out.data_ptr(),
         b, n_in, n, k, r, n_levels, n_tile, b_tile, int(in_smem),
         stream_of(dev))
-    build.check(err, "lut_layer")
     lut_layer.launches += 1
     return out
 

@@ -48,10 +48,9 @@ def xnor_matmul_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
     check_int32("out", out, dev, 2)
     if b == 0 or n == 0:
         return out
-    err = build.library().xnor_popcount_launch(
+    build.launch("xnor_popcount",
         x_packed.data_ptr(), w_packed.data_ptr(), out.data_ptr(), b, n, w,
         n_features, stream_of(dev))
-    build.check(err, "xnor_popcount")
     xnor_matmul_packed.launches += 1
     return out
 

@@ -42,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import shardings as sh
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.obs.trace import NULL_SPAN, program_tracer
 
 Tensor = torch.Tensor
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
@@ -478,12 +479,15 @@ def _ring_hit(w: int, slot: Tensor) -> Tensor:
 
 
 def _attn_step(cfg: ArchConfig, p, x: Tensor, kc: Tensor, vc: Tensor,
-               positions: Tensor, slot: Tensor, cpos: Tensor) -> Tensor:
+               positions: Tensor, slot: Tensor, cpos: Tensor,
+               layer: int = 0) -> Tensor:
     """One token's attention; writes its K, V into ring slot ``slot`` of
     the layer's caches kc, vc (B, W, KV, dh) in place (the reference's
     one-hot blend gives the same values, and is what a placed cache
     takes: DTensor has no in-place indexed write into a sharded
-    ring)."""
+    ring). The attention over the ring is the program tracer's
+    ``lm.decode_attention`` span (args ``layer``, with a device
+    interval)."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = sh.whole_heads(L.matmul(x, p["wq"]), h).reshape(b, 1, h, dh)
@@ -499,7 +503,11 @@ def _attn_step(cfg: ArchConfig, p, x: Tensor, kc: Tensor, vc: Tensor,
         rows = torch.arange(b, device=x.device)
         kc[rows, slot] = k1[:, 0]
         vc[rows, slot] = v1[:, 0]
-    out = L.decode_attention(q, kc, vc, cpos, positions, window=cfg.window)
+    tr = program_tracer()
+    with (tr.span("lm.decode_attention", args={"layer": layer},
+                  device=q.device) if tr.enabled else NULL_SPAN):
+        out = L.decode_attention(q, kc, vc, cpos, positions,
+                                 window=cfg.window)
     return L.matmul(out.reshape(b, h * dh), p["wo"])
 
 
@@ -523,7 +531,7 @@ def _dec_block_step(cfg: ArchConfig, p, x: Tensor, cache, layer: int,
     if cfg.family == "ssm":
         return x + _mamba_step_into(cfg, p["mamba"], hin, cache, layer)
     a_out = _attn_step(cfg, p["attn"], hin, cache["k"][layer],
-                       cache["v"][layer], positions, slot, cpos)
+                       cache["v"][layer], positions, slot, cpos, layer)
     if cfg.family == "hybrid":
         m_out = _mamba_step_into(cfg, p["mamba"], hin, cache, layer)
         x = x + 0.5 * (L.rms_norm(a_out, p["ln_attn_out"], eps)

@@ -7,6 +7,9 @@ standard library).
                near-zero overhead when disabled); every request carries
                submit → queue-wait → batch-formation (with flush
                reason) → pack → dispatch → device-exec → scatter spans;
+               ``trace.program_tracer()``, the process-wide tracer of the LM
+               engine, the decode step and the trainer, on the
+               profiler's clock, with device intervals from CUDA events;
   export     — Chrome trace-event JSON (opens in Perfetto / chrome://
                tracing) and structured JSONL event export;
   registry   — one counters/gauges/histograms registry that

@@ -26,10 +26,20 @@ counts them). ``TraceEvent`` objects are only materialized on the cold
 tests); when the tracer is disabled — or the shared ``NULL_TRACER`` is
 in use — every record call is a single attribute check, so the serving
 hot path pays ~nothing for the instrumentation points it carries.
+
+``program_tracer()`` is the process-wide ``ProgramTracer`` that the LM
+engine, the decode step and the trainer record into. It records while
+an operator has enabled it or while a ``torch.profiler`` session
+records, stamps with the clock the profiler's events carry (Unix time),
+opens a ``record_function`` range per span while the profiler records
+and an operator has enabled it, and gives a span that asks for it a
+device interval: the stream time between two CUDA events, resolved when
+the events are read.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from itertools import count as _monotonic_count
 from threading import get_ident
@@ -97,6 +107,7 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+NULL_SPAN = _NULL_SPAN      # for call sites that skip building a span's args
 
 
 class SpanTracer:
@@ -283,3 +294,147 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+# ---------------------------------------------------------------------------
+# The program tracer
+# ---------------------------------------------------------------------------
+
+class ProfilerClock:
+    """The clock ``torch.profiler``'s events carry (Unix time), in µs,
+    so a ring span and a device trace's operations share one timeline."""
+
+    def now_us(self) -> float:
+        return time.time_ns() / 1000
+
+
+class _ProgramSpan:
+    """One program span: the ring's host interval, a ``record_function``
+    range while a profiler records and the tracer is enabled, and, asked
+    for on a CUDA device, a pair of timing events on the device's current
+    stream, kept in the span's args under ``_DEVICE_EVENTS`` until
+    ``events()`` resolves them."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_device", "_t0",
+                 "_range", "_ev0")
+
+    def __init__(self, tracer: "ProgramTracer", name: str, cat: str,
+                 args: Optional[dict], device):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._args = args if device is None else dict(args or ())
+        self._device = device
+
+    def __enter__(self) -> "_ProgramSpan":
+        tr = self._tracer
+        # the ring's interval encloses the profiler's range of the span
+        self._t0 = tr._now()
+        self._range = None
+        if tr._on and tr._profiler._is_profiler_enabled:
+            self._range = tr._record_function(self._name)
+            self._range.__enter__()
+        self._ev0 = None
+        if self._device is not None and self._device.type == "cuda":
+            self._ev0 = tr._cuda.Event(enable_timing=True)
+            self._ev0.record(tr._cuda.current_stream(self._device))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        tr = self._tracer
+        if self._device is not None:
+            interval = None
+            if self._ev0 is not None:
+                ev1 = tr._cuda.Event(enable_timing=True)
+                ev1.record(tr._cuda.current_stream(self._device))
+                interval = (self._ev0, ev1)
+            self._args[_DEVICE_EVENTS] = interval
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        t1 = tr._now()
+        next(tr._n)
+        tr._buf.append(("X", self._name, self._cat, self._t0,
+                        t1 - self._t0, get_ident(), None, self._args))
+
+
+_DEVICE_EVENTS = "_device_events"
+
+
+class ProgramTracer(SpanTracer):
+    """The tracer the program's own paths record into.
+
+    It records while ``enabled`` was set by an operator or while a
+    ``torch.profiler`` session records (``enabled`` reads both: one
+    check an instrumentation point, and nothing allocated, when neither
+    holds). Its clock is ``ProfilerClock``. While a profiler records and
+    an operator has enabled the tracer, each span also opens
+    ``record_function(name)``, so the device's operations nest under the
+    program's names. A profiler session alone fills the ring and leaves
+    the profile as it would be without the program: a range around
+    device work gains a device-side annotation in the profile, which a
+    reader of its raw events would count as a device operation.
+    ``span(..., device=d)`` on a CUDA device ``d`` records a timing event
+    before and after the block on ``d``'s current stream and never
+    synchronizes; ``events()`` (and so export) resolves the pair into
+    ``args["device_ms"]``, the stream time between the two events, idle
+    time inside it included (``None`` on other devices)."""
+
+    def __init__(self, capacity: int = 1 << 16, enabled: bool = False):
+        import torch
+        from torch.autograd import profiler
+        self._profiler = profiler
+        self._record_function = profiler.record_function
+        self._cuda = torch.cuda
+        super().__init__(clock=ProfilerClock(), capacity=capacity,
+                         enabled=enabled)
+
+    @property
+    def enabled(self) -> bool:
+        return self._on or self._profiler._is_profiler_enabled
+
+    @enabled.setter
+    def enabled(self, on: bool) -> None:
+        self._on = bool(on)
+
+    def span(self, name: str, cat: str = "program",
+             args: Optional[dict] = None, device=None):
+        """``device`` asks for a device interval on that device."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return _ProgramSpan(self, name, cat, args, device)
+
+    def instant(self, name: str, cat: str = "program",
+                args: Optional[dict] = None) -> None:
+        super().instant(name, cat, args)
+
+    def events(self) -> List[TraceEvent]:
+        """Snapshot in recording order, device intervals resolved (each
+        end event waited for: read after the caller's own sync)."""
+        out = []
+        for t in list(self._buf):
+            args = t[7]
+            if args and _DEVICE_EVENTS in args:
+                args = dict(args)
+                interval = args.pop(_DEVICE_EVENTS)
+                args["device_ms"] = None
+                if interval is not None:
+                    interval[1].synchronize()
+                    args["device_ms"] = interval[0].elapsed_time(interval[1])
+                t = t[:7] + (args,)
+            out.append(TraceEvent(*t))
+        return out
+
+
+_program = None
+_program_lock = threading.Lock()
+
+
+def program_tracer() -> ProgramTracer:
+    """The process-wide ``ProgramTracer``, made on first use (off until
+    enabled or a profiler records)."""
+    global _program
+    if _program is None:
+        with _program_lock:
+            if _program is None:
+                _program = ProgramTracer()
+    return _program

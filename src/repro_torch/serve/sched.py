@@ -86,6 +86,9 @@ class ServeFuture:
         self._exc: Optional[BaseException] = None
         self.t_enqueue_us: float = 0.0
         self.t_done_us: float = 0.0
+        # LM admission stamps (``LMEngine``): slot taken, first token out
+        self.t_admit_us: float = 0.0
+        self.t_first_token_us: float = 0.0
         self.trace_id: Optional[int] = None
 
     def done(self) -> bool:

@@ -275,6 +275,16 @@ class LMEngine:
     (``lm.cast_weights_``); the module stays a valid input to ``lm``'s
     functions with the same results. Everything runs under
     ``torch.inference_mode()``.
+
+    The process-wide program tracer (``obs.trace.program_tracer()``)
+    gets ``engine.prefill {S}`` around each admission's prefill and
+    ``engine.decode {active, ctx, slots}`` around each decode step, both
+    with device intervals. Every future is stamped from the engine's
+    clock at enqueue, admission (``t_admit_us``), first token
+    (``t_first_token_us``) and completion; after each admission the
+    tracer gets an ``engine.first_token`` instant whose args are the
+    differences ``queue_wait_us`` (admission - enqueue) and
+    ``first_token_us`` (first token - enqueue).
     """
 
     def __init__(self, cfg, params, n_slots: int = 4, max_seq: int = 512,
@@ -346,12 +356,16 @@ class LMEngine:
 
     def _admit(self, req: LMRequest, slot: int):
         from repro_torch.models import lm
+        from repro_torch.obs.trace import NULL_SPAN, program_tracer
 
+        tr = program_tracer()
         s = len(req.prompt)
         toks = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :],
                                device=self.device)
-        logits, cache1 = lm.prefill(self.cfg, self.params, toks,
-                                    max_seq=self.max_seq)
+        with (tr.span("engine.prefill", args={"S": s}, device=self.device)
+              if tr.enabled else NULL_SPAN):
+            logits, cache1 = lm.prefill(self.cfg, self.params, toks,
+                                        max_seq=self.max_seq)
         for key in cache1:
             if key not in _LM_CACHE_LEAVES:
                 raise KeyError(f"unknown cache leaf {key}")
@@ -364,6 +378,13 @@ class LMEngine:
         self.last_tok[slot, 0] = int(torch.argmax(logits[0]))
         req.out_tokens.append(int(self.last_tok[slot, 0]))
 
+    def _decode_args(self) -> Dict[str, int]:
+        """The decode step's work: active slots, their summed context
+        (each slot's position + 1) and the pool's slots."""
+        ctx = [int(self.positions[i]) + 1 for i in range(self.n_slots)
+               if self.active[i] is not None]
+        return {"active": len(ctx), "ctx": sum(ctx), "slots": self.n_slots}
+
     def run(self, requests: Sequence[LMRequest] = ()) -> List[LMRequest]:
         """Decode until the admission queue and all slots are empty.
 
@@ -371,12 +392,14 @@ class LMEngine:
         callers using ``submit`` directly can pass nothing.
         """
         from repro_torch.models import lm
+        from repro_torch.obs.trace import NULL_SPAN, program_tracer
         from repro_torch.serve.sched import RejectReason, RequestRejected
 
         for r in requests:
             self.submit(r)
         done: List[LMRequest] = []
         sreqs: List[Optional[Any]] = [None] * self.n_slots
+        tr = program_tracer()
         with torch.inference_mode():
             while len(self.admission) or any(a is not None
                                              for a in self.active):
@@ -394,12 +417,24 @@ class LMEngine:
                     if self.active[i] is None and len(self.admission):
                         (sreq,) = self.admission.pop_batch(1)
                         sreqs[i] = sreq
+                        fut = sreq.future
+                        fut.t_admit_us = self.clock.now_us()
                         self._admit(sreq.x, i)
+                        fut.t_first_token_us = self.clock.now_us()
+                        if tr.enabled:
+                            tr.instant("engine.first_token", args={
+                                "queue_wait_us": (fut.t_admit_us
+                                                  - fut.t_enqueue_us),
+                                "first_token_us": (fut.t_first_token_us
+                                                   - fut.t_enqueue_us)})
                 # decode tick
-                logits, self.cache = lm.decode_step(
-                    self.cfg, self.params, self.cache,
-                    torch.as_tensor(self.last_tok, device=self.device),
-                    torch.as_tensor(self.positions, device=self.device))
+                with (tr.span("engine.decode", args=self._decode_args(),
+                              device=self.device)
+                      if tr.enabled else NULL_SPAN):
+                    logits, self.cache = lm.decode_step(
+                        self.cfg, self.params, self.cache,
+                        torch.as_tensor(self.last_tok, device=self.device),
+                        torch.as_tensor(self.positions, device=self.device))
                 nxt = logits.argmax(-1).cpu().numpy()
                 for i in range(self.n_slots):
                     req = self.active[i]

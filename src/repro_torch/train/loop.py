@@ -17,6 +17,11 @@ exception before re-raising, and flags stragglers with
 ``StepWatchdog``. On the card the step time ends in a synchronize (the
 reference blocks on the loss).
 
+The program tracer (``obs.trace.program_tracer()``) gets, per
+microbatch, ``train.forward`` around the loss and ``train.backward``
+around the gradients, then ``train.optimizer`` around the global norm
+and the optimizer's update, each with a device interval.
+
 Placed (DTensor) parameters train the same way under
 ``dist.shardings.use_mesh``: each leaf's gradient comes back with its
 parameter's placements, the optimizer steps each shard in place, and
@@ -35,6 +40,7 @@ from repro_torch.dist import compress as C
 from repro_torch.dist.fault import StepWatchdog, retry_step
 from repro_torch.dist.shardings import full, is_placed
 from repro_torch.models import lm
+from repro_torch.obs.trace import program_tracer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import AdamW, AdamWState, global_norm
 
@@ -78,21 +84,28 @@ def loss_and_grads(cfg: ArchConfig, params: lm.Params,
     reference's ``lax.scan`` does."""
     lm.require_trainable(params)
     leaves = lm.leaves(params)
+    dev = leaves[0].device
+    tr = program_tracer()
     with torch.enable_grad():
         for t in leaves:
             t.requires_grad_(True)
         if grad_accum <= 1:
-            loss = _loss(cfg, params, batch)
-            return loss.detach(), _grads(loss, leaves)
+            with tr.span("train.forward", device=dev):
+                loss = _loss(cfg, params, batch)
+            with tr.span("train.backward", device=dev):
+                grads = _grads(loss, leaves)
+            return loss.detach(), grads
         n = grad_accum
         micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
-        dev = leaves[0].device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in range(n):
-            loss = _loss(cfg, params, {k: v[i] for k, v in micro.items()})
-            for acc, g in zip(g_sum, _grads(loss, leaves)):
+            with tr.span("train.forward", device=dev):
+                loss = _loss(cfg, params, {k: v[i] for k, v in micro.items()})
+            with tr.span("train.backward", device=dev):
+                grads = _grads(loss, leaves)
+            for acc, g in zip(g_sum, grads):
                 acc.add_(g)
             loss_sum = loss_sum + loss.detach()
         inv = torch.full((), 1.0 / n, dtype=torch.float32, device=dev)
@@ -115,9 +128,12 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW,
             grads, ef = C.topk_compress(grads, ef, compress_frac)
         elif compress == "sign":
             grads, ef = C.sign_compress(grads, ef)
-        gnorm = global_norm(grads)
-        opt = optimizer.update(grads, state.opt, lm.leaves(state.params),
-                               lm.reference_ndims(state.params))
+        leaves = lm.leaves(state.params)
+        with program_tracer().span("train.optimizer",
+                                   device=leaves[0].device):
+            gnorm = global_norm(grads)
+            opt = optimizer.update(grads, state.opt, leaves,
+                                   lm.reference_ndims(state.params))
         metrics = {"loss": full(loss), "grad_norm": full(gnorm),
                    "step": opt.step}
         return TrainState(state.params, opt, ef), metrics

@@ -1466,3 +1466,117 @@ def test_launcher_model_par_1_on_card_matches_unplaced(cuda_device):
     for key in ("loss", "grad_norm"):
         assert abs(got[key] - want[key]) <= 4 * 2.0 ** -7 * max(
             1.0, abs(want[key])), (key, got[key], want[key])
+
+
+def _one_launch(kernel, device, mapped):
+    """A small call of the wrapper that launches ``kernel``."""
+    rng = np.random.default_rng(0)
+    dp = synth.compile_device_plan(mapped, tile_rows=8)
+    words = _i32(synth.random_words(mapped.n_pis, 7, seed=7), device)
+    if kernel == "lut_eval":
+        args = [_i32(a, device) for a in (dp.leaf_idx, dp.tt_bits,
+                                          dp.out_wires)]
+        return lambda: lut_eval(words, *args, n_wires=dp.n_wires)
+    if kernel == "lut_eval_streamed":
+        tp = dp.tiles
+        targs = [_i32(a, device) for a in (
+            tp.tt_tiles, tp.leaf_tiles, tp.out_base,
+            level_starts(tp.level_of_tile))]
+        return lambda: lut_eval_streamed(words, *targs, n_rows=tp.n_rows)
+    if kernel == "lut_layer":
+        codes, idx, tables = (
+            torch.from_numpy(a.astype(np.int32)).to(device) for a in (
+                rng.integers(0, 2, (8, 16)), rng.integers(0, 16, (32, 3)),
+                rng.integers(0, 8, (32, 8))))
+        return lambda: lut_layer(codes, idx, tables, 2)
+    if kernel == "aig_sim":
+        f0, f1 = _small_aig().fanin_arrays()
+        args = [_i32(a, device) for a in (
+            synth.random_words(8, 3, seed=3), f0, f1)]
+        return lambda: aig_sim_walk(*args)
+    if kernel == "xnor_popcount":
+        x, w = (torch.from_numpy(rng.choice([-1.0, 1.0], s)
+                                 .astype(np.float32)).to(device)
+                for s in ((4, 100), (8, 100)))
+        xp, wp = pack_bipolar(x), pack_bipolar(w)
+        return lambda: xnor_matmul_packed(xp, wp, 100)
+    if kernel == "fanin_matmul":
+        x, idx, w, bias = fanin_operands(8, 32, 16, 3, torch.float32,
+                                         device)
+        return lambda: fanin_matmul(x, idx, w, bias)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 64, 2, 64))
+                                .astype(np.float32)).to(device, torch.bfloat16)
+               for _ in range(3))
+    if kernel == "flash_attention":
+        return lambda: flash_attention_forward(q, k, v)
+    out, lse = flash_attention_forward(q, k, v)
+    return lambda: flash_attention_backward(q, k, v, out, torch.ones_like(out),
+                                            lse)
+
+
+def _small_aig():
+    rng = np.random.default_rng(1)
+    aig = synth.AIG(8)
+    aig.outputs = [table_to_aig(aig, rng.random(256) < 0.5, None,
+                                [2 * (i + 1) for i in range(8)])
+                   for _ in range(3)]
+    return aig
+
+
+LAUNCHED = ["lut_eval", "lut_eval_streamed", "lut_layer", "aig_sim",
+            "xnor_popcount", "fanin_matmul", "flash_attention",
+            "flash_attention_backward"]
+
+
+@pytest.fixture(scope="module")
+def launch_profile(mapped):
+    """One CUDA profiler session over two calls of each wrapper (each
+    called once before, so nothing loads inside it). A short session
+    can come back with no device activity at all, the profiler's own
+    loss; such a session is taken again, at most three times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    calls = [_one_launch(k, dev, mapped) for k in LAUNCHED]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.zeros(4, device=dev).add_(1)
+            for call in calls:
+                call()
+                call()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        if any(e.device_type() == cuda for e in events):
+            break
+    return events
+
+
+@pytest.mark.parametrize("kernel", LAUNCHED)
+def test_launch_kernels_link_to_their_profiler_op(launch_profile, kernel):
+    """Under a CUDA profiler every kernel launched links to a host op
+    (none to correlation id 0), and each ``ctypes`` launch through
+    ``build.launch`` opens the op ``repro_torch::<kernel>``, to which
+    its kernels link."""
+    from repro_torch.kernels import build
+    cuda = torch.autograd.DeviceType.CUDA
+    events = launch_profile
+    # a session's first launch also holds the profiler's "Activity
+    # Buffer Request" event, under the launch's correlation id
+    host = [e for e in events if e.device_type() != cuda
+            and not e.name().startswith(("cuda", "cu"))]
+    host_ids = {e.correlation_id() for e in host} - {0}
+    kernels = [e for e in events if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    ops = {e.correlation_id() for e in host
+           if e.name() == build.OP_PREFIX + kernel}
+    assert len(ops) == 2, sorted({e.name() for e in host})
+    assert kernels and all(e.linked_correlation_id() in host_ids
+                           for e in kernels), [
+        (e.name(), e.linked_correlation_id()) for e in kernels]
+    assert {e.linked_correlation_id() for e in kernels} >= ops
