@@ -261,6 +261,24 @@ Phases, each printing its own lines:
                 timed beside SDPA (rows
                 7j-7l of the kernels line; device times from
                 ``bench/flash_backward.py`` in a process of its own);
+  16b. decode_attention — the decode attention kernel at
+                nemotron-4-340b's served decode (B 64 slots, W 4,096, H
+                96, KV 8, dh 192, bf16, contexts of the conversation
+                mix): one launch at the shapes' split count, within 2e-2
+                x max(1, |exact|) of the float64 attention and within
+                2e-2 of SDPA over the valid keys (a yardstick the port
+                never calls), timed beside its plain version and SDPA,
+                its device time a call against its byte bound; then the
+                main path there: one ``lm.decode_step`` of nemotron-4-340b
+                (2 layers, bf16 weights) over such a ring from every
+                launch count at 0, one launch a layer (the row's
+                launches) and the kernel's share of the step's device
+                time (the last row of the kernels line); every engine
+                run above (glm4-9b, hymba, mixtral, nemotron) and
+                seamless's decode loop require one launch a layer in
+                each decode step; the build phase requires its twelve
+                instances (dh 16-256, bf16 and float32), the bf16 dh 192
+                one without spill;
   17. dist    — the placed paths: glm4-9b (4 of 40 layers) through the
                 launcher unplaced and at ``--model-par 1`` (NCCL world
                 1), decode under serve_tp_only, the pipeline at one
@@ -299,6 +317,11 @@ plain version, for the port beside
 the script: a copy of this file in an older checkout times that
 checkout's kernels through the same wrappers, so two checkouts compare
 in one run on one card.
+
+    python3 chip_smoke.py --decode-attention
+
+runs only the card, build and decode_attention phases and prints that
+phase's row as ``{"kernels": [...]}``.
 """
 from __future__ import annotations
 
@@ -341,6 +364,9 @@ KERNELS = {
     # no TPU kernel: the reference differentiates full_attention in XLA
     "flash_attention_backward": ("src/repro_torch/csrc/flash_attention.cu",
                                  "src/repro/models/layers.py:81"),
+    # no TPU kernel: the reference's decode attention is plain jnp
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/models/layers.py:151"),
 }
 F32_OPS_PER_S = 67e12         # H100 SXM non-tensor float32 peak
 TF32_OPS_PER_S = 495e12       # H100 SXM dense tensor-core peaks
@@ -778,6 +804,17 @@ def phase_build():
     print("[build] the wide flash templates (dh 192 and 256, float32 and "
           "bf16): forward, dK / dV and dQ instances found; the bf16 dh 192 "
           "ones spill 0 bytes")
+    # the decode attention kernel: six widths in both types, none of
+    # nemotron-4-340b's (bf16, 192) spilling
+    for dtype in ("float", "bf16"):
+        for dhp in ("16", "32", "64", "128", "192", "256"):
+            name = f"decode_attention_kernel<{dtype},{dhp}>"
+            require(name in by_name, f"ptxas reported no {name}")
+            regs, stack = by_name[name]
+            print(f"[build] {name}: {regs}; {stack}")
+            if (dtype, dhp) == ("bf16", "192"):
+                require(stack.startswith("0 bytes stack frame, 0 bytes "
+                                         "spill"), f"{name} spills: {stack}")
 
 
 def sass_of(lib, kernel: str) -> str:
@@ -2696,10 +2733,12 @@ def decode_vs_forward(torch, lm, cfg, params, tokens, s, max_seq, label,
 
 
 def serve_timed(torch, lm, eng, reqs):
-    """``eng.run(reqs)`` with every flash launch counted from 0 and each
+    """``eng.run(reqs)`` with every launch counted from 0 and each
     prefill and decode step timed (host clock ending in a synchronize:
-    the engine synchronizes on each token anyway). Returns (done,
-    seconds, flash launches, prefill ms, decode ms)."""
+    the engine synchronizes on each token anyway). Requires one
+    decode_attention launch a layer in each decode step: the engine's
+    ticks go through the kernel. Returns (done, seconds, flash launches,
+    prefill ms, decode ms)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     timed = {"prefill": [], "decode_step": []}
     real = {name: getattr(lm, name) for name in timed}
@@ -2722,11 +2761,20 @@ def serve_timed(torch, lm, eng, reqs):
         done = eng.run(reqs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = launch_counts()["flash_attention"]
+        counts = launch_counts()
     finally:
         for name, fn in real.items():
             setattr(lm, name, fn)
-    return done, seconds, launches, timed["prefill"], timed["decode_step"]
+    n_steps = len(timed["decode_step"])
+    require(n_steps > 0 and counts["decode_attention"]
+            == n_steps * eng.cfg.n_layers,
+            f"{eng.cfg.name}: decode_attention launched "
+            f"{counts['decode_attention']} times in the engine's {n_steps} "
+            f"decode steps, expected {n_steps} x {eng.cfg.n_layers}")
+    print(f"[serve] {eng.cfg.name}: {counts['decode_attention']} "
+          f"decode_attention launches in {n_steps} decode steps")
+    return (done, seconds, counts["flash_attention"], timed["prefill"],
+            timed["decode_step"])
 
 
 def record_attention(layers, kind=lambda q, k, kw: "prefill"):
@@ -3339,6 +3387,7 @@ def phase_lm_moe_encdec(torch, card, errs):
         out_toks.append(nxt.cpu())
         e_prefill_ms = (time.perf_counter() - t0) * 1e3
         n_prefill = launch_counts()["flash_attention"]
+        d_prefill = launch_counts()["decode_attention"]
         pos = torch.full((ENCDEC_BATCH,), LM_PROMPT, dtype=torch.int32,
                          device=dev)
         t1 = time.perf_counter()
@@ -3352,11 +3401,16 @@ def phase_lm_moe_encdec(torch, card, errs):
             pos += 1
         e_seconds = e_prefill_ms / 1e3 + time.perf_counter() - t1
         n_steps = launch_counts()["flash_attention"] - n_prefill
+        d_steps = launch_counts()["decode_attention"] - d_prefill
     n_etok = ENCDEC_BATCH * LM_NEW
     require(n_prefill == cfg.n_enc_layers + 2 * cfg.n_layers
             and n_steps == (LM_NEW - 1) * cfg.n_layers,
             f"{ENCDEC_ARCH}: flash_attention launched {n_prefill} times in "
             f"prefill and {n_steps} in {LM_NEW - 1} decode steps")
+    # the decoder's self-attention over the ring: the decode kernel alone
+    require(d_prefill == 0 and d_steps == (LM_NEW - 1) * cfg.n_layers,
+            f"{ENCDEC_ARCH}: decode_attention launched {d_prefill} times in "
+            f"prefill and {d_steps} in {LM_NEW - 1} decode steps")
     require(counts == {"encoder": cfg.n_enc_layers,
                        "decoder": cfg.n_layers,
                        "cross prefill": cfg.n_layers,
@@ -4183,6 +4237,223 @@ def phase_lm_wide(torch, card, errs):
 
 
 # ---------------------------------------------------------------------------
+# decode_attention: one token over the serving ring cache
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPE = (64, 4096, 96, 8, 192)   # B, W, H, KV, dh: decode_heavy's
+
+
+def served_contexts(rng, n: int):
+    """Context lengths of ``n`` slots of the decode_heavy cell's
+    conversation mix at a random moment: requests drawn in proportion to
+    their output length (the time a slot holds one), each part way
+    through its output. Prompts log-normal through median 1,020 and mean
+    1,155, clipped at 3,072; outputs through 129 and 211, clipped at
+    1,023 (``perfbench/traffic/closed_azure_conv.json``)."""
+    import numpy as np
+
+    def lognormal(median, mean, hi, size):
+        sigma = math.sqrt(2 * math.log(mean / median))
+        return np.clip(rng.lognormal(math.log(median), sigma, size), 1,
+                       hi).astype(np.int64)
+
+    prompts = lognormal(1020, 1155, 3072, 8192)
+    outs = lognormal(129, 211, 1023, 8192)
+    pick = rng.choice(8192, n, p=outs / outs.sum())
+    return prompts[pick] + (rng.random(n) * outs[pick]).astype(np.int64) + 1
+
+
+def phase_decode_attention(torch, card, errs):
+    """The decode attention kernel at nemotron-4-340b's served decode
+    (``DECODE_SHAPE``, bf16, the conversation mix's contexts, no ring
+    wrapped): one launch, the split count of the shapes, held to the
+    float64 attention within LM_KERNEL_TOL x max(1, max |exact|) and to
+    SDPA over the valid keys (each row's keys padded to the longest
+    row, masked: a yardstick the port never calls) within LM_KERNEL_TOL;
+    timed beside its plain version and SDPA, its device time a call
+    (both kernels) against its byte bound: the K and V of every valid
+    slot, q and out. Returns the kernels line's row."""
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.bench.profiled import device_time
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref,
+                                                      split_count)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    b, w, h, kv, dh = DECODE_SHAPE
+    ctx = served_contexts(np.random.default_rng(0), b)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, 1, h, dh), (b, w, kv, dh), (b, w, kv, dh)))
+    slots = torch.arange(w, dtype=torch.int32, device=dev)
+    ctx_t = torch.as_tensor(ctx, dtype=torch.int32, device=dev)
+    cpos = torch.where(slots[None, :] < ctx_t[:, None], slots[None, :],
+                       torch.full((), -1, dtype=torch.int32, device=dev))
+    pos = ctx_t - 1
+    fn = lambda: decode_attention(q, k, v, cpos, pos)  # noqa: E731
+    launches = decode_attention.launches
+    got = fn()
+    torch.cuda.synchronize()
+    splits = split_count(b, kv, h // kv, w, torch.bfloat16)
+    require(decode_attention.launches == launches + 1
+            and decode_attention.splits == splits,
+            f"decode_attention: {decode_attention.launches - launches} "
+            f"launches, {decode_attention.splits} splits (want 1, {splits})")
+    exact = decode_attention_ref(q.double(), k.double(), v.double(), cpos,
+                                 pos)
+    plain = decode_attention_ref(q, k, v, cpos, pos)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    scale = max(1.0, float(exact.abs().max()))
+    require(math.isfinite(err) and err <= LM_KERNEL_TOL * scale,
+            f"decode_attention: {err} from the float64 attention, above "
+            f"{LM_KERNEL_TOL} x {scale}")
+    errs["decode_attention"] = err
+    del exact
+    lmax = int(ctx.max())
+    kt, vt = (t[:, :lmax].transpose(1, 2).contiguous() for t in (k, v))
+    mask = (slots[:lmax][None, :] < ctx_t[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    check_close({}, "decode_attention", sdpa().transpose(1, 2), got,
+                LM_KERNEL_TOL, "against the library call")
+    n_kv = int(ctx.sum())
+    n_bytes = n_kv * kv * dh * 2 * 2 + nbytes(q, got)
+    b_ms, b_by = bound(n_bytes, 4 * dh * h * n_kv, BF16_OPS_PER_S)
+    ms = time_ms(fn)
+    dt = device_time(fn, "decode_attention", 20)
+    lib = device_time(sdpa, None, 20)
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, cpos, pos),
+                       iters=10, reps=3)
+    library_ms = time_ms(sdpa)
+    # ms is CUDA events over 200 back-to-back calls: the share by it
+    # where the profiler's session missed a launch
+    share = (f"{100 * b_ms * 1e3 / dt.call_us:.1f} % of the bound"
+             if dt.call_us else
+             f"not seen; {100 * b_ms / ms:.1f} % of the bound by CUDA events")
+    print(f"[decode_attention] B {b} W {w} H {h} KV {kv} dh {dh} bf16, "
+          f"contexts {n_kv} (mean {n_kv / b:.1f}, max {lmax}), {splits} "
+          f"splits: {ms:.5f} ms a call, device {us_text(dt.call_us)} a call "
+          f"({share}); by kernel "
+          + ", ".join(f"{kernel_name(k_)} {us_:.2f} us"
+                      for k_, us_ in dt.kernels.items())
+          + f"; bound {b_ms:.5f} ms ({b_by}: {n_bytes} B); plain "
+          f"{plain_ms:.5f} ms; SDPA over the valid keys {library_ms:.5f} ms, "
+          f"device {us_text(lib.call_us)} a call; max abs error from the "
+          f"float64 attention {err:.4g} (plain bf16 {plain_err:.4g}) on "
+          f"{card}")
+    del q, k, v, kt, vt, got, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, tick = served_decode_tick(torch, ctx)
+    src, replaces = KERNELS["decode_attention"]
+    row = {"name": "decode_attention", "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library_ms,
+           "device_us": dt.call_us, "splits": splits, "tick": tick}
+    print(f"[decode_attention] phase {time.perf_counter() - t_phase:.1f}s")
+    return row
+
+
+def served_decode_tick(torch, ctx):
+    """The main path at decode_heavy's shape: nemotron-4-340b cut to
+    WIDE_LAYERS layers, bf16 weights, a DECODE_SHAPE ring whose slots hold
+    the contexts ``ctx``, one ``lm.decode_step`` from every launch count
+    at 0. Requires one decode_attention launch a layer at the shapes'
+    split count. Times the step by CUDA events and its attention by the
+    program tracer's ``lm.decode_attention`` spans (their device
+    intervals, one a layer); the largest other kernel comes from the
+    profiler, "not seen" where its session misses a kernel of the step
+    (as it does late in a whole smoke run). Returns (launches, {the
+    step's us, the decode attention's us and share, the largest other
+    kernel})."""
+    import gc
+
+    from repro_torch.bench.profiled import device_time
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_count)
+    from repro_torch.models import lm
+    from repro_torch.obs.trace import program_tracer
+    dev = torch.device("cuda")
+    b, w, h, kv, dh = DECODE_SHAPE
+    cfg = dataclasses.replace(get_arch(WIDE_ARCH), n_layers=WIDE_LAYERS)
+    require((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (h, kv, dh),
+            f"{WIDE_ARCH}: heads {cfg.n_heads}, {cfg.n_kv_heads} KV, dh "
+            f"{cfg.head_dim}")
+    params = lm.cast_weights_(cfg, lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)))
+    cache = lm.init_cache(cfg, b, w, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen,
+                                     device=dev))
+    slots = torch.arange(w, dtype=torch.int32, device=dev)
+    ctx_t = torch.as_tensor(ctx, dtype=torch.int32, device=dev)
+    cache["positions"].copy_(torch.where(slots[None, :] < ctx_t[:, None],
+                                         slots[None, :], -1))
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    step = lambda: lm.decode_step(cfg, params, cache, toks,  # noqa: E731
+                                  ctx_t)
+    n_steps = 5
+    tr = program_tracer()
+    with torch.inference_mode():
+        reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        launches = launch_counts()["decode_attention"]
+        splits = decode_attention.splits
+        step_us = time_ms(step, iters=n_steps, reps=5, warm=1) * 1e3
+        tr.enabled = True
+        tr.clear()
+        try:
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+            spans = [e.args["device_ms"] for e in tr.events()
+                     if e.name == "lm.decode_attention"]
+        finally:
+            tr.enabled = False
+            tr.clear()
+        dt = device_time(step, None, 5)
+    want = split_count(b, kv, h // kv, w, torch.bfloat16)
+    require(launches == cfg.n_layers and splits == want,
+            f"{WIDE_ARCH} decode step: {launches} decode_attention launches "
+            f"at {splits} splits, expected {cfg.n_layers} at {want}")
+    require(len(spans) == n_steps * cfg.n_layers
+            and all(ms_ is not None for ms_ in spans),
+            f"{WIDE_ARCH} decode step: lm.decode_attention device spans "
+            f"{spans} in {n_steps} steps of {cfg.n_layers} layers")
+    attn_us = sum(spans) * 1e3 / n_steps
+    other = max(((us, k_) for k_, us in dt.kernels.items()
+                 if "decode_attention" not in k_), default=(None, ""))
+    tick = {"step_us": step_us, "attention_us": attn_us,
+            "attention_share": attn_us / step_us,
+            "top_other_kernel": kernel_name(other[1]) if other[1] else None,
+            "top_other_us": other[0]}
+    print(f"[decode_attention] {WIDE_ARCH} ({cfg.n_layers} layers, bf16) "
+          f"decode step at B {b} W {w}: {launches} decode_attention launches "
+          f"({splits} splits), {step_us:.2f} us a step by CUDA events, "
+          f"decode attention {attn_us:.2f} us by its spans "
+          f"({100 * attn_us / step_us:.1f} %); largest other kernel "
+          + (f"{kernel_name(other[1])} {other[0]:.2f} us" if other[1]
+             else "not seen (the profiler missed a kernel of the step)"))
+    del params, cache, toks, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, tick
+
+
+# ---------------------------------------------------------------------------
 # dist: the LM stack placed over a device mesh
 # ---------------------------------------------------------------------------
 
@@ -4725,6 +4996,12 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-times"]:
         phase_kernel_times(torch, phase_card(torch))
         return 0
+    if sys.argv[1:] == ["--decode-attention"]:
+        card = phase_card(torch)
+        phase_build()
+        print(json.dumps({"kernels": [phase_decode_attention(torch, card,
+                                                             {})]}))
+        return 0
     t_start = time.perf_counter()
     errs = {}
     card = phase_card(torch)
@@ -4746,6 +5023,7 @@ def main() -> int:
     rows += phase_lm_moe_encdec(torch, card, errs)
     rows += phase_lm_train(torch, card, errs)
     rows += phase_lm_wide(torch, card, errs)
+    rows.append(phase_decode_attention(torch, card, errs))
     phase_dist(torch, card)
     phase_logic_head(torch, card)
     phase_dryrun(card)

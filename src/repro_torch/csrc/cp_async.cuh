@@ -1,6 +1,7 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) and
-// the dynamic shared-memory opt-in, shared by the lut_eval, lut_layer and
-// fanin_matmul (the opt-in) kernels.
+// the dynamic shared-memory opt-in, shared by the lut_eval, lut_layer,
+// fanin_matmul (the opt-in) and mma.sync (mma_sync.cuh: the zero-fill
+// copy and the counted wait) kernels.
 
 #pragma once
 
@@ -22,8 +23,29 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
+// N (4, 8 or 16) bytes from src to dst; with valid false nothing is read
+// and dst is filled with zeros.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? N : 0;                  // 0: zero-fill
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(N), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until this thread's copies have landed, all but the last N groups.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Wait until this thread's copies have landed, all but the last group.

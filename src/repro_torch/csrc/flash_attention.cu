@@ -124,6 +124,7 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "mma_sync.cuh"
 #include "wgmma.cuh"
 
 // The templates of 192 and 256 (dh 129..256), forward and mma.sync
@@ -155,6 +156,8 @@ cudaError_t backward_wgmma(const void* q, const void* k, const void* v,
 }  // namespace repro_flash_wide
 
 namespace {
+
+using namespace mma_sync;
 
 constexpr int kSlices = 4;                  // key slices per block
 constexpr int kMaxHeads = 2;                // query heads per block
@@ -190,31 +193,6 @@ struct Tile {
       (3 * kWarps * kRows + kWarps * kRows * (DHP + 1)) * 4;
   static constexpr int kSmem = kBytes > kMergeBytes ? kBytes : kMergeBytes;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const int n = valid ? N : 0;                  // 0: zero-fill
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)), "l"(src), "n"(N), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Rows [r0, r0 + ROWS) of one head (row r at base + r * row_elems) into
 // a shared tile of stride Tile::kStride, copied by n threads (thread
@@ -263,69 +241,6 @@ __device__ __forceinline__ void load_step(T* dst, const T* base, int k0,
                                           int cw_shift, int id, int n) {
   load_rows<T, DHP, Tile<T, DHP>::kKeys>(dst, base, k0, hi, row_elems, dh,
                                          cw_shift, id, n);
-}
-
-// ---- TF32 (float32 in three passes) ------------------------------------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) split(a[r], hi[r], lo[r]);
-}
-
-// hi.hi + hi.lo + lo.hi of an A fragment (split once by the caller) and
-// a B fragment; the small terms go to `e`
-__device__ __forceinline__ void mma_3xtf32(float (&s)[4], float (&e)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(s, ah, bh0, bh1);
-  mma_tf32(e, ah, bl0, bl1);
-  mma_tf32(e, al, bh0, bh1);
-}
-
-// ---- bf16 ------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// 2^x by one MUFU.EX2 (flushes a result below 2^-126 to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t bits16(const __nv_bfloat16* p, bool in) {

@@ -17,7 +17,10 @@ version.
                     sliding-window and grouped-query heads
                     (``flash_attention``), and its backward
                     (``flash_attention_backward``, the gradient of the
-                    forward's ``torch.autograd`` Function on the card).
+                    forward's ``torch.autograd`` Function on the card);
+  decode_attention — one query token's attention over the serving ring
+                    KV cache, read in place at its valid slots, split
+                    across blocks (``decode_attention``).
 
 Each kernel directory holds ops.py (the wrapper: checks, allocation,
 launch, launch counter) and ref.py (the plain torch version). A wrapper
@@ -30,6 +33,7 @@ it never falls back from one to the other.
 def wrappers():
     """Kernel name -> wrapper (each counts its launches in ``.launches``)."""
     from .aig_sim import aig_sim_walk
+    from .decode_attention import decode_attention
     from .fanin_matmul import fanin_matmul
     from .flash_attention import flash_attention, flash_attention_backward
     from .lut_eval import lut_eval, lut_eval_streamed
@@ -40,7 +44,8 @@ def wrappers():
             "xnor_popcount": xnor_matmul_packed,
             "fanin_matmul": fanin_matmul,
             "flash_attention": flash_attention,
-            "flash_attention_backward": flash_attention_backward}
+            "flash_attention_backward": flash_attention_backward,
+            "decode_attention": decode_attention}
 
 
 def launch_counts():

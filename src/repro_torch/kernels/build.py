@@ -49,6 +49,7 @@ SIGNATURES = {
     + [_I] * 3 + [_P],
     "flash_attention_backward_workspace": [_P] * 5 + [_I] * 7 + [_P],
     "flash_attention_forward_branch": [_P] * 3 + [_I] * 7,
+    "decode_attention_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I] + [_P],
 }
 # entry points that return something other than a cudaError_t
 RESTYPES = {"flash_attention_backward_workspace": ctypes.c_longlong}

@@ -1,9 +1,37 @@
-"""Argument checks and launch plumbing shared by the kernel wrappers."""
+"""Argument checks and launch plumbing shared by the kernel wrappers,
+and the plain arithmetic rules shared by the plain versions and the
+model layers (``models/layers.py``): the reference's mask value, its
+softmax, and the CPU rule for a bfloat16 product."""
 from __future__ import annotations
 
 import torch
 
 INT32_INDEX_LIMIT = 1 << 31
+NEG = -1e30                   # the reference's mask value
+
+
+def cpu_low_precision(t: torch.Tensor) -> bool:
+    """A bfloat16 or float16 tensor on the CPU, whose products take the
+    float32 rule of ``einsum``."""
+    return t.device.type == "cpu" and t.dtype in (torch.bfloat16,
+                                                  torch.float16)
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' type; a bfloat16 product on the
+    CPU in float32, rounded once, as XLA's CPU backend computes it
+    (torch's own CPU bfloat16 GEMM differs from it in the last bit of
+    some products)."""
+    if cpu_low_precision(ops[0]):
+        return torch.einsum(eq, *(o.float() for o in ops)).to(ops[0].dtype)
+    return torch.einsum(eq, *ops)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum (torch's
+    own softmax multiplies by the sum's reciprocal)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def check_tensor(name: str, t: torch.Tensor, device: torch.device,

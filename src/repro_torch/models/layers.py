@@ -30,10 +30,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core import quant as Q
 from repro_torch.dist import shardings as sh
+from repro_torch.kernels.common import NEG, einsum
+from repro_torch.kernels.common import cpu_low_precision as _cpu_low_precision
+from repro_torch.kernels.common import softmax as _softmax
 
 Tensor = torch.Tensor
 
-NEG = -1e30                   # the reference's mask value
 ATTN_CHUNK_THRESHOLD = 2048   # CPU: chunked (online-softmax) attention above
 ATTN_CHUNK = 1024
 
@@ -48,11 +50,6 @@ def _scalar(value: float, like: Tensor) -> Tensor:
     return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
-def _cpu_low_precision(t: Tensor) -> bool:
-    return t.device.type == "cpu" and t.dtype in (torch.bfloat16,
-                                                  torch.float16)
-
-
 def matmul(x: Tensor, w: Tensor) -> Tensor:
     """x @ w in x's type (w cast to it first, as the reference casts at
     use). On the CPU a bfloat16 product is taken in float32 and rounded
@@ -64,14 +61,6 @@ def matmul(x: Tensor, w: Tensor) -> Tensor:
     if _cpu_low_precision(x):
         return (x.float() @ w.float()).to(x.dtype)
     return x @ w
-
-
-def einsum(eq: str, *ops: Tensor) -> Tensor:
-    """``torch.einsum`` in the operands' type, with ``matmul``'s rule for
-    a bfloat16 product on the CPU."""
-    if _cpu_low_precision(ops[0]):
-        return torch.einsum(eq, *(o.float() for o in ops)).to(ops[0].dtype)
-    return torch.einsum(eq, *ops)
 
 
 def silu(x: Tensor) -> Tensor:
@@ -88,13 +77,6 @@ def gelu_tanh(x: Tensor) -> Tensor:
         return _scalar(value, x)
     inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
-
-
-def _softmax(x: Tensor) -> Tensor:
-    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum (torch's
-    own softmax multiplies by the sum's reciprocal)."""
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
 
 
 # ---------------------------------------------------------------------------
@@ -276,40 +258,25 @@ def _placed_attention(q, k, v, causal: bool, window: int):
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                      cache_positions: Tensor, positions: Tensor,
                      *, window: int = 0) -> Tensor:
-    """Single-token attention against a (possibly ring) KV cache, in
-    plain torch on every device.
+    """Single-token attention against a (possibly ring) KV cache.
 
     q: (B, 1, H, dh); caches: (B, W, KV, dh); cache_positions: (B, W)
     absolute position per slot (-1 = empty); positions: (B,) current pos.
-    Grouped-GQA form: KV is never repeated. On a mesh, with q or the
-    cache placed, it is ``_placed_decode_attention``.
+    Grouped-GQA form: KV is never repeated. On a CUDA tensor it is the
+    hand-written ``decode_attention`` kernel, which reads the ring where
+    it lies and only at its valid slots, and raises on a shape it does
+    not take; on a CPU tensor its plain version, the twin of the
+    reference's. On a mesh, with q or the cache placed, it is
+    ``_placed_decode_attention``.
     """
     mesh = sh.active_mesh()
     if mesh is not None and (sh.is_placed(q) or sh.is_placed(k_cache)):
         return _placed_decode_attention(q, k_cache, v_cache,
                                         cache_positions, positions, window,
                                         mesh)
-    b, _, h, dh = q.shape
-    logits = _decode_logits(q, k_cache, cache_positions, positions, window)
-    probs = _softmax(logits).to(q.dtype)
-    out = einsum("bkgqw,bwkd->bqkgd", probs, v_cache)
-    return out.reshape(b, 1, h, dh)
-
-
-def _decode_logits(q: Tensor, k_cache: Tensor, cache_positions: Tensor,
-                   positions: Tensor, window: int) -> Tensor:
-    """Masked float32 scores (B, KV, G, 1, W) of the one query token."""
-    b, _, h, dh = q.shape
-    kvh = k_cache.shape[2]
-    q5 = q.reshape(b, 1, kvh, h // kvh, dh)
-    scale = torch.full((), 1.0 / math.sqrt(dh), dtype=torch.float32,
-                       device=q.device)
-    logits = einsum("bqkgd,bwkd->bkgqw", q5, k_cache).float() * scale
-    valid = (cache_positions >= 0) & \
-        (cache_positions <= positions[:, None])              # (B, W)
-    if window > 0:
-        valid &= cache_positions > (positions[:, None] - window)
-    return logits.masked_fill(~valid[:, None, None, None, :], NEG)
+    from repro_torch.kernels.decode_attention import decode_attention as kern
+    return kern(q, k_cache, v_cache, cache_positions, positions,
+                window=window)
 
 
 def _placed_decode_attention(q, k_cache, v_cache, cache_positions,
@@ -349,7 +316,8 @@ def _placed_decode_attention(q, k_cache, v_cache, cache_positions,
     cl = local(cache_positions, ks[:2])
     pl = local(positions, ks[:1])
     bl, hl = ql.shape[0], ql.shape[2]
-    logits = _decode_logits(ql, kl, cl, pl, window)
+    from repro_torch.kernels.decode_attention import decode_logits
+    logits = decode_logits(ql, kl, cl, pl, window)
     if branch != "decode_sequence" or msize == 1:
         probs = _softmax(logits).to(ql.dtype)
         out = einsum("bkgqw,bwkd->bqkgd", probs, vl)

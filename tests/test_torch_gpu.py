@@ -1504,6 +1504,16 @@ def _one_launch(kernel, device, mapped):
         x, idx, w, bias = fanin_operands(8, 32, 16, 3, torch.float32,
                                          device)
         return lambda: fanin_matmul(x, idx, w, bias)
+    if kernel == "decode_attention":
+        from repro_torch.kernels.decode_attention import decode_attention
+        qd, kd, vd = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                      .to(device, torch.bfloat16)
+                      for s in ((2, 1, 4, 64), (2, 128, 2, 64),
+                                (2, 128, 2, 64)))
+        cpos = torch.arange(128, dtype=torch.int32,
+                            device=device).expand(2, 128).contiguous()
+        pos = torch.tensor([127, 60], dtype=torch.int32, device=device)
+        return lambda: decode_attention(qd, kd, vd, cpos, pos)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 64, 2, 64))
                                 .astype(np.float32)).to(device, torch.bfloat16)
                for _ in range(3))
@@ -1525,7 +1535,7 @@ def _small_aig():
 
 LAUNCHED = ["lut_eval", "lut_eval_streamed", "lut_layer", "aig_sim",
             "xnor_popcount", "fanin_matmul", "flash_attention",
-            "flash_attention_backward"]
+            "flash_attention_backward", "decode_attention"]
 
 
 @pytest.fixture(scope="module")

@@ -196,4 +196,5 @@ def test_launcher_serves_carried_weights(slice_state):
     assert set(out["launches"]) == {"lut_eval", "lut_eval_streamed",
                                     "lut_layer", "aig_sim", "xnor_popcount",
                                     "fanin_matmul", "flash_attention",
-                                    "flash_attention_backward"}
+                                    "flash_attention_backward",
+                                    "decode_attention"}
